@@ -5,24 +5,37 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
-  2. build: nvcc builds every kernel of the path from vectorsearch_tpu_torch/csrc;
-  3. kernel against plain: the grouped bucket-scan kernel against its plain
-     PyTorch version at the main path's shapes (D=768, cap=3072, K=995,
-     B=512 at nprobe 1, 8 and 64), with median CUDA-event times of both;
+  2. build: nvcc builds every kernel of the path from vectorsearch_tpu_torch/csrc,
+     one nvcc per source, all started together;
+  3. kernels against plain, with median CUDA-event times of both:
+     a. the grouped bucket-scan kernel at the search path's shapes (D=768,
+        cap=3072, K=995, B=512 at nprobe 1, 8 and 64);
+     b. the k-means assign and accumulate kernels at the build's shapes
+        (1M x 768 clustered packed rows at K=1024 and 4096, and the
+        superset phase's 196,608 rows at K=16,384): cid equal except at
+        near-ties, counts equal, sums within tolerance, and two accumulate
+        launches bit-identical;
   4. index at the bench's scale: bench.py's 1M x 768 clustered corpus and
      512 queries (recipe copied), exact-f32 ground truth, the k-means build
      with bench.py's arguments, IVFIndex.build, then IVFIndex.search at
      nprobe 1, 2, 8, 64 and -1 (recall@10 and QPS), 10,000 inserts that
      must find themselves first and 10,000 deletes that must never return;
-  5. engine: upload, rebuild, search, search_many, delete and a snapshot
-     reboot through Engine, with the deterministic noop embedder;
-  6. the kernels line, the card line, and the contract line.
+  5. engine: upload, rebuild (Engine.refresh_centroids), search,
+     search_many, delete and a snapshot reboot through Engine, with the
+     deterministic noop embedder;
+  6. the 10M build: bench_build.py's configuration, 10M x 768 clustered
+     packed rows from 4096 generating centers (made on the card from a
+     fixed seed, moved to host numpy once) -> build_centroids with k=4096
+     and bench_build.py's arguments: build seconds, iterations, final
+     churn, cluster sizes and peak device memory;
+  7. the kernels line, the card line, and the contract line.
 
-The kernel launch counts are set to 0 after phase 3 and read after phase
-5: every kernel of the path must have been launched by phases 4-5. It
-imports only the port, vectorsearch_tpu_torch (the codec, store and noop
-embedder through vectorsearch_tpu_torch.host), and checks at the end that
-jax was never imported.
+Every kernel launch count is set to 0 just before each of phases 4-6 and
+read just after: phases 4 and 5 must launch all three kernels, phase 6
+both k-means kernels. The script imports only the port,
+vectorsearch_tpu_torch (the codec, store and noop embedder through
+vectorsearch_tpu_torch.host), and checks at the end that jax was never
+imported.
 """
 from __future__ import annotations
 
@@ -47,6 +60,15 @@ MIN_RECALL_WIDE = 0.96
 K_SCAN, CAP_SCAN = 995, 3072
 KERNEL_NPROBES = (1, 8, 64)
 KERNEL_ATOL = 1e-4  # f32 sums in another order over exact products
+# the k-means kernels' shapes: (rows, K, the plain version's chunk), as
+# the 1M index build and the 10M build's superset phase run them
+KMEANS_SHAPES = ((1_000_000, 1024, 65_536), (1_000_000, 4096, 65_536),
+                 (196_608, 16_384, 8_192))
+KMEANS_MAIN = (1_000_000, 4096)
+TIE_ATOL = 1e-5  # a cid may differ only where the plain sims lie this close
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-4  # f32 sums of the same values in another order
+# bench_build.py's configuration (BASELINE config 4)
+BUILD_N, BUILD_K = 10_000_000, 4096
 
 
 def log(msg: str) -> None:
@@ -71,6 +93,32 @@ def make_queries(data, n_queries, seed=123):
     q_idx = rng.choice(data.shape[0], size=n_queries, replace=False)
     noise = rng.normal(size=(n_queries, data.shape[1])).astype(np.float32) * 0.1
     return (data[q_idx] + noise).astype(np.float32)
+
+
+def packed_on_card(torch, dev, n, dim, k, seed, step=500_000):
+    """Clustered rows (bench.py's recipe: 2 * center + unit noise) made on
+    the card from `seed` and packed the codec's way (layout.pack_float:
+    range folded from 0, truncation to u8, codes q - 128, f32 sidecars).
+    Yields (start, PackedVectors of tensors) per `step` rows."""
+    from vectorsearch_tpu_torch.host import layout
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn((k, dim), generator=gen, device=dev)
+    for start in range(0, n, step):
+        m = min(step, n - start)
+        v = centers[torch.randint(0, k, (m,), generator=gen, device=dev)] * 2.0
+        v += torch.randn((m, dim), generator=gen, device=dev)
+        vmin = v.amin(dim=-1).clamp(max=0)
+        vmax = v.amax(dim=-1).clamp(min=0)
+        span = vmax - vmin
+        safe = torch.where(span == 0, 1.0, span)
+        q = torch.trunc((v - vmin[:, None]) / safe[:, None] * 255.0).clamp(0, 255)
+        codes = (q - 128).to(torch.int8)
+        scale = span / 255.0
+        offset = vmin + 128.0 * scale
+        norm = (offset[:, None] + scale[:, None] * codes.float()).norm(dim=-1)
+        inv_norm = torch.where(norm == 0, 0.0, 1.0 / torch.where(norm == 0, 1.0, norm))
+        yield start, layout.PackedVectors(codes, scale, offset, inv_norm)
 
 
 def median_ms(torch, fn, runs=20):
@@ -177,6 +225,94 @@ def phase_kernel(torch, dev, smi: str) -> dict:
         "ms_at": "nprobe=8, B=512, K=995, cap=3072, D=768",
         "by_nprobe": by_nprobe,
     }
+
+
+def phase_kmeans_kernels(torch, dev, smi: str) -> list:
+    """assign and accumulate against their plain versions on clustered
+    packed rows, with centroids drawn from the rows (sample_init's way)."""
+    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.kernels import kmeans as km
+
+    n_max = max(n for n, _, _ in KMEANS_SHAPES)
+    parts = [p for _, p in packed_on_card(torch, dev, n_max, DIM, K_GEN, seed=1)]
+    full = layout.PackedVectors(*[torch.cat(a) for a in zip(*parts)])
+    del parts
+    by_shape, worst_gap, worst_sum = {}, 0.0, 0.0
+    for n, kk, chunk in KMEANS_SHAPES:
+        rows = layout.PackedVectors(*[a[:n] for a in full])
+        gen = torch.Generator(device=dev).manual_seed(kk)
+        pick = torch.randperm(n, generator=gen, device=dev)[:kk]
+        cents = rows.offset[pick, None] + rows.scale[pick, None] * rows.codes[pick].float()
+        _, csum, cn_bf16 = km._normalize(cents)
+        cn_bf16 = cn_bf16.contiguous()
+        cid = km.assign(rows, cn_bf16, csum)
+        want = km.assign_ref(rows, cn_bf16, csum, chunk)
+        torch.cuda.synchronize()
+        moved = torch.nonzero(cid != want).flatten()
+        gap = 0.0
+        if moved.numel():
+            sims = km.assign_scores_ref(
+                layout.PackedVectors(*[a[moved] for a in rows]), cn_bf16, csum)
+            gap = float((sims.gather(1, want[moved, None].long())
+                         - sims.gather(1, cid[moved, None].long())).abs().max())
+        if gap > TIE_ATOL:
+            raise AssertionError(f"assign N={n} K={kk}: {moved.numel()} rows differ "
+                                 f"from plain, widest sim gap {gap} > {TIE_ATOL}")
+        sums, counts = km.accumulate(rows, cid, kk)
+        ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk, chunk)
+        again, _ = km.accumulate(rows, cid, kk)
+        torch.cuda.synchronize()
+        if not torch.equal(counts, ref_counts):
+            raise AssertionError(f"accumulate N={n} K={kk}: counts differ from plain")
+        err = (sums - ref_sums).abs()
+        excess = float((err - SUM_RTOL * ref_sums.abs()).max())
+        if excess > SUM_ATOL:
+            raise AssertionError(f"accumulate N={n} K={kk}: sums beyond rtol "
+                                 f"{SUM_RTOL} by {excess} > atol {SUM_ATOL}")
+        if not torch.equal(again, sums):
+            raise AssertionError(f"accumulate N={n} K={kk}: two launches differ")
+        plain_runs = 5
+        r = {
+            "N": n, "K": kk, "cid_moved": int(moved.numel()), "max_tie_gap": gap,
+            "max_abs_sum_err": float(err.max()),
+            "assign_ms": median_ms(torch, lambda: km.assign(rows, cn_bf16, csum)),
+            "assign_plain_ms": median_ms(
+                torch, lambda: km.assign_ref(rows, cn_bf16, csum, chunk), plain_runs),
+            "accumulate_ms": median_ms(torch, lambda: km.accumulate(rows, cid, kk)),
+            "accumulate_plain_ms": median_ms(
+                torch, lambda: km.accumulate_ref(rows, cid, kk, chunk), plain_runs),
+        }
+        by_shape[f"{n}x{kk}"] = r
+        worst_gap = max(worst_gap, gap)
+        worst_sum = max(worst_sum, r["max_abs_sum_err"])
+        log(f"kmeans kernels N={n} D={DIM} K={kk}: assign {r['assign_ms']:.3f} ms vs plain "
+            f"{r['assign_plain_ms']:.3f} ms, {r['cid_moved']} cids differ (widest sim gap "
+            f"{gap:.3g}); accumulate {r['accumulate_ms']:.3f} ms vs plain "
+            f"{r['accumulate_plain_ms']:.3f} ms, counts equal, max |sum err| "
+            f"{r['max_abs_sum_err']:.3g}, bit-identical relaunch (median of 20 / "
+            f"{plain_runs}, {smi})")
+        del sums, ref_sums, again, err, want, cid
+    del full
+    torch.cuda.empty_cache()
+    main = by_shape[f"{KMEANS_MAIN[0]}x{KMEANS_MAIN[1]}"]
+    at = f"N={KMEANS_MAIN[0]}, K={KMEANS_MAIN[1]}, D={DIM}"
+    src = "vectorsearch_tpu_torch/csrc/kmeans.cu"
+    return [
+        {"name": "kmeans_assign", "route": "cuda", "source": src,
+         "replaces": "vectorsearch_tpu/kernels/pallas_kmeans.py:58",
+         "max_abs_err": worst_gap, "ms": main["assign_ms"],
+         "plain_ms": main["assign_plain_ms"], "ms_at": at,
+         "by_shape": {k: {f: v[f] for f in ("cid_moved", "max_tie_gap", "assign_ms",
+                                              "assign_plain_ms")}
+                      for k, v in by_shape.items()}},
+        {"name": "kmeans_accumulate", "route": "cuda", "source": src,
+         "replaces": "vectorsearch_tpu/kernels/pallas_kmeans.py:100",
+         "max_abs_err": worst_sum, "ms": main["accumulate_ms"],
+         "plain_ms": main["accumulate_plain_ms"], "ms_at": at + " (with the sort glue)",
+         "by_shape": {k: {f: v[f] for f in ("max_abs_sum_err", "accumulate_ms",
+                                              "accumulate_plain_ms")}
+                      for k, v in by_shape.items()}},
+    ]
 
 
 def phase_index(torch, dev, n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> dict:
@@ -320,6 +456,48 @@ def phase_engine(torch, dev, n_docs=2_000) -> dict:
     return out
 
 
+def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
+    """bench_build.py's build: clustered packed rows from k generating
+    centers, made on the card, moved to host numpy once, then
+    build_centroids with bench_build.py's arguments."""
+    from vectorsearch_tpu_torch.build import build_centroids
+    from vectorsearch_tpu_torch.host import layout
+
+    t0 = time.perf_counter()
+    host = layout.PackedVectors(np.empty((n, DIM), np.int8), np.empty(n, np.float32),
+                                np.empty(n, np.float32), np.empty(n, np.float32))
+    for start, part in packed_on_card(torch, dev, n, DIM, k, seed=0):
+        for dst, src in zip(host, part):
+            dst[start : start + src.shape[0]] = src.cpu().numpy()
+    del part
+    torch.cuda.empty_cache()
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    result = build_centroids(
+        host, k=k, min_cluster_size=max(1, (n // k) // 10), max_iters=8,
+        superset_iters=3, chunk=65_536, balance_rounds=1, device=dev,
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {
+        "n": n, "k_asked": k, "gen_s": gen_s, "build_s": build_s,
+        "k": int(result.centroids.shape[0]), "iterations": result.iterations,
+        "final_churn": result.final_changes,
+        "max_cluster": int(result.counts.max()), "mean_cluster": float(result.counts.mean()),
+        "assigned": int(result.counts.sum()),
+        "finite": bool(np.isfinite(result.centroids).all()),
+        "peak_device_GiB": peak / 2**30,
+    }
+    log(f"build10m: {n}x{DIM} clustered rows made and moved to host in {gen_s:.1f} s; "
+        f"build_centroids k={k}: {build_s:.1f} s, {out['k']} centroids, "
+        f"{out['iterations']} iters, final churn {out['final_churn']}, max/mean cluster "
+        f"{out['max_cluster']}/{out['mean_cluster']:.1f}, peak device memory "
+        f"{out['peak_device_GiB']:.2f} GiB")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -328,27 +506,40 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from vectorsearch_tpu_torch.kernels import grouped_scan
+    from vectorsearch_tpu_torch.kernels import kmeans as km
 
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
     phase_build()
-    entry = phase_kernel(torch, dev, smi)
+    entries = [phase_kernel(torch, dev, smi), *phase_kmeans_kernels(torch, dev, smi)]
 
-    grouped_scan.LAUNCHES = 0  # the main path's own launches from here on
-    idx = phase_index(torch, dev)
-    eng_launch0 = grouped_scan.LAUNCHES
-    eng = phase_engine(torch, dev)
-    launches = grouped_scan.LAUNCHES
-    log(f"launches: grouped_scores {eng_launch0} in the index phase, "
-        f"{launches - eng_launch0} in the engine phase")
+    def run(phase, fn):
+        """fn() with every launch count set to 0 just before and read just
+        after: the main path's own launches."""
+        grouped_scan.LAUNCHES = km.ASSIGN_LAUNCHES = km.ACCUMULATE_LAUNCHES = 0
+        out = fn()
+        launches[phase] = {"grouped_scores": grouped_scan.LAUNCHES,
+                           "kmeans_assign": km.ASSIGN_LAUNCHES,
+                           "kmeans_accumulate": km.ACCUMULATE_LAUNCHES}
+        log(f"launches in the {phase} phase: {launches[phase]}")
+        return out
+
+    launches = {}
+    idx = run("index", lambda: phase_index(torch, dev))
+    eng = run("engine", lambda: phase_engine(torch, dev))
+    torch.cuda.empty_cache()
+    b10 = run("build10m", lambda: phase_build10m(torch, dev))
 
     failures = []
     for nprobe, r in idx["recall"].items():
         floor = MIN_RECALL.get(nprobe, MIN_RECALL_WIDE)
         if r < floor:
             failures.append(f"recall@10 {r:.4f} < {floor} at nprobe={nprobe}")
-    if eng_launch0 == 0 or launches == eng_launch0:
-        failures.append("the grouped scan kernel was not launched in both phases")
+    for phase, names in (("index", None), ("engine", None),
+                         ("build10m", ("kmeans_assign", "kmeans_accumulate"))):
+        idle = [k for k, v in launches[phase].items() if (names is None or k in names) and not v]
+        if idle:
+            failures.append(f"not launched in the {phase} phase: {idle}")
     if idx["self_top1"] < 1.0:
         failures.append(f"inserted rows found themselves first in {idx['self_top1']:.4f}")
     if idx["deleted_returned"] or idx["n_live"] != idx["expected_live"]:
@@ -358,6 +549,9 @@ def main() -> int:
             and min(eng["hits"]) > 0 and eng["reboot_hits"] > 0
             and eng["reboot_live"] == eng["live"] - eng["deleted_vectors"]):
         failures.append(f"engine phase: {eng}")
+    if not (b10["finite"] and b10["assigned"] == b10["n"] and b10["iterations"] >= 1
+            and 1 < b10["k"] <= 2 * b10["k_asked"]):
+        failures.append(f"10M build: {b10}")
     if "jax" in sys.modules:
         failures.append("jax was imported")
     if failures:
@@ -365,8 +559,10 @@ def main() -> int:
             print("FAIL: " + f, file=sys.stderr)
         return 1
 
-    entry["launches"] = launches
-    print(json.dumps({"kernels": [entry]}))
+    for e in entries:
+        e["launches_by_phase"] = {p: v[e["name"]] for p, v in launches.items()}
+        e["launches"] = sum(e["launches_by_phase"].values())
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

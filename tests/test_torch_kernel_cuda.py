@@ -1,20 +1,35 @@
-"""The grouped-scan CUDA kernel on the card: against its plain version, on
-the index's search path, and the wrapper's refusals. Every test here
-needs an NVIDIA GPU and nvcc and skips without one. This file imports no
-jax (the machine with the card has none), so it runs there as
+"""The CUDA kernels on the card: each against its plain version, on its
+main path, and the wrappers' refusals. Every test here needs an NVIDIA
+GPU and nvcc and skips without one. This file imports no jax (the machine
+with the card has none), so it runs there as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 
-Tolerance kernel vs plain: atol 1e-4, since the products are exact in
-f32 and only the order of the f32 sums differs; block maxima are exact.
+Tolerances, kernel vs plain:
+- grouped scan: atol 1e-4, since the products are exact in f32 and only
+  the order of the f32 sums differs; block maxima are exact;
+- k-means assign: the same cid except at near-ties, where the plain
+  version's sims at the two ids lie within 1e-5 (exact products, f32 sums
+  in another order);
+- k-means accumulate: for the same cid, equal counts and sums within
+  rtol 1e-5 / atol 1e-4 (f32 sums in another order); two launches give
+  bit-identical sums.
 """
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from vectorsearch_tpu.quant import layout
+from vectorsearch_tpu.quant.layout import PackedVectors
 from vectorsearch_tpu_torch.index import IVFIndex
 from vectorsearch_tpu_torch.kernels import _build, grouped_scan
+from vectorsearch_tpu_torch.kernels import kmeans as km
+
+# the package exports a `kmeans` function that shadows the module name
+tk = importlib.import_module("vectorsearch_tpu_torch.build.kmeans")
 
 pytestmark = pytest.mark.cuda
 
@@ -98,7 +113,8 @@ def test_ivf_search_on_card_matches_cpu(cuda):
 
 
 def test_no_library_raises(cuda, monkeypatch):
-    """No kernel library -> an error, never the plain version."""
+    """No kernel library -> an error, never the plain version, from every
+    wrapper."""
 
     def no_library():
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
@@ -109,6 +125,14 @@ def test_no_library_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         grouped_scan.grouped_scores(*_inputs(cuda, 2, 8, 3, 64, 16, 0), 64, False)
     assert grouped_scan.LAUNCHES == before
+    rows = _rows_on(cuda, 1000, 512)
+    cn_bf16, csum = _centroids_on(cuda, 5, 512, seed=0)
+    before = (km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        km.assign(rows, cn_bf16, csum)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        km.accumulate(rows, torch.zeros(1000, dtype=torch.int32, device=cuda), 5)
+    assert (km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES) == before
 
 
 def test_rejects_bad_input(cuda):
@@ -124,3 +148,132 @@ def test_rejects_bad_input(cuda):
         grouped_scan.grouped_scores(*bad, 64, False)
     with pytest.raises(ValueError, match="CUDA device"):
         grouped_scan.grouped_scores(*args[:3], args[3].cpu(), *args[4:], 64, False)
+
+
+# ---------------------------------------------------------------- k-means
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_blobs(n, d, seed=0):
+    """Seeded clustered rows, packed by the codec (numpy, host)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((64, d), dtype=np.float32) * 2
+    v = centers[rng.integers(0, 64, size=n)] + rng.standard_normal((n, d), dtype=np.float32)
+    return layout.pack_float(v)
+
+
+def _rows_on(device, n, d):
+    return PackedVectors(*[torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                           for a in _packed_blobs(n, d)])
+
+
+def _centroids_on(device, kk, d, seed):
+    rng = np.random.default_rng(seed)
+    cn, csum, cn_bf16 = km._normalize(
+        torch.from_numpy(rng.standard_normal((kk, d), dtype=np.float32)).to(device))
+    return cn_bf16.contiguous(), csum.contiguous()
+
+
+def assert_near_ties_only(rows, cn_bf16, csum, got, want, atol=1e-5):
+    """cid equal to the plain one except where the plain version's sims
+    at the two ids lie within atol."""
+    diff = torch.nonzero(got != want).flatten()
+    if diff.numel():
+        sims = km.assign_scores_ref(PackedVectors(*[a[diff] for a in rows]), cn_bf16, csum)
+        s_want = sims.gather(1, want[diff].long()[:, None])
+        s_got = sims.gather(1, got[diff].long()[:, None])
+        gap = float((s_want - s_got).abs().max())
+        assert gap <= atol, f"{diff.numel()} rows differ, widest gap {gap}"
+    assert diff.numel() <= 1 + got.numel() // 1000
+
+
+@pytest.mark.parametrize("d", [100, 512, 768])
+@pytest.mark.parametrize("n", [1, 1000, 65537])
+@pytest.mark.parametrize("kk", [1, 5, 1024, 4096, 16384])
+def test_kmeans_kernels_match_plain(cuda, kk, n, d):
+    rows = _rows_on(cuda, n, d)
+    cn_bf16, csum = _centroids_on(cuda, kk, d, seed=kk + d)
+    a0, c0 = km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES
+    cid = km.assign(rows, cn_bf16, csum)
+    want = km.assign_ref(rows, cn_bf16, csum, chunk=4096)
+    torch.cuda.synchronize()
+    assert cid.dtype == torch.int32 and cid.shape == (n,)
+    assert bool(((cid >= 0) & (cid < kk)).all())
+    assert_near_ties_only(rows, cn_bf16, csum, cid, want)
+    sums, counts = km.accumulate(rows, cid, kk)
+    ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk, chunk=4096)
+    torch.cuda.synchronize()
+    assert (km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES) == (a0 + 1, c0 + 1)
+    assert torch.equal(counts, ref_counts)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=1e-4)
+
+
+def test_accumulate_is_deterministic(cuda):
+    """Two launches on the same input give bit-identical sums (no float
+    atomics), and an empty cluster gets zero sums and a zero count."""
+    n, d, kk = 200_000, 768, 1024
+    rows = _rows_on(cuda, n, d)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cid = torch.randint(0, kk - 1, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    s1, c1 = km.accumulate(rows, cid, kk)
+    s2, c2 = km.accumulate(rows, cid, kk)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2) and torch.equal(c1, c2)
+    assert float(c1[-1]) == 0 and not bool(s1[-1].any())
+    assert float(c1.sum()) == n
+
+
+def test_assign_accumulate_pass_matches_plain(cuda):
+    """The whole pass (normalize, bf16 cast, both kernels) against
+    assign_accumulate_ref on the same rows and centroids."""
+    rows = _rows_on(cuda, 65537, 768)
+    cents = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((1024, 768), dtype=np.float32)).to(cuda)
+    sums, counts, cid = km.assign_accumulate(rows, cents, 8192)
+    ref_sums, ref_counts, ref_cid = km.assign_accumulate_ref(rows, cents, 4096)
+    torch.cuda.synchronize()
+    _, csum, cn_bf16 = km._normalize(cents)
+    assert_near_ties_only(rows, cn_bf16, csum, cid, ref_cid)
+    # clusters that a near-tie row moved between are left out
+    keep = torch.ones(1024, dtype=torch.bool, device=cuda)
+    moved = cid != ref_cid
+    keep[cid[moved].long()] = False
+    keep[ref_cid[moved].long()] = False
+    assert torch.equal(counts[keep], ref_counts[keep])
+    torch.testing.assert_close(sums[keep], ref_sums[keep], rtol=1e-5, atol=1e-4)
+
+
+def test_kmeans_wrappers_refuse_bad_input(cuda):
+    rows = _rows_on(cuda, 1000, 512)
+    cn_bf16, csum = _centroids_on(cuda, 5, 512, seed=0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        km.assign(PackedVectors(rows.codes.cpu(), *rows[1:]), cn_bf16, csum)
+    with pytest.raises(ValueError, match="cn"):
+        km.assign(rows, cn_bf16.float(), csum)
+    with pytest.raises(ValueError, match="codes"):
+        km.assign(PackedVectors(rows.codes.float(), *rows[1:]), cn_bf16, csum)
+    cid = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="cid"):
+        km.accumulate(rows, cid.long(), 5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        km.accumulate(rows, cid.cpu(), 5)
+
+
+def test_lloyd_on_card_matches_cpu(cuda):
+    """lloyd on the card (both kernels) against lloyd on the CPU (their
+    plain versions) from the same seeded blobs and initial centroids:
+    assignment agreement >= 0.99 and equal iterations."""
+    rng = np.random.default_rng(0)
+    k, d = 6, 128  # test_torch_kmeans.py's blobs: stable under any f32 sum order
+    centers = rng.normal(size=(k, d)).astype(np.float32) * 8
+    v = np.concatenate(
+        [c + rng.normal(size=(200, d)).astype(np.float32) for c in centers])
+    packed = layout.pack_float(v)
+    init = tk.sample_init(packed, k, seed=1)
+    a0, c0 = km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES
+    gpu = tk.lloyd(packed, init, max_iters=50, chunk=1024, device=cuda)
+    cpu = tk.lloyd(packed, init, max_iters=50, chunk=1024, device="cpu")
+    assert (gpu.assignments == cpu.assignments).mean() >= 0.99
+    assert gpu.iterations == cpu.iterations
+    assert km.ASSIGN_LAUNCHES - a0 == gpu.iterations
+    assert km.ACCUMULATE_LAUNCHES - c0 == gpu.iterations

@@ -1,11 +1,11 @@
-"""Lloyd's k-means centroid builder as plain torch.
+"""Lloyd's k-means centroid builder on the port's kernels.
 
 Counterpart of vectorsearch_tpu/build/kmeans.py (single device):
 
-  assign     cosine argmax: [chunk, K] products of the int8 codes with the
-             bf16-rounded normalized centroids, accumulated in f32
-  accumulate per-cluster sums as an f32 one-hot product H^T @ V (exact
-             products, a fixed summation order, so runs repeat)
+  assign     cosine argmax of the int8 codes against the bf16-rounded
+             normalized centroids, accumulated in f32
+  accumulate per-cluster sums of the dequantized rows in f32 (the same
+             sums on every run)
   recenter   mean of member vectors (reference: dnc/dnc.go:402-456)
 
 Initialization keeps the reference's oversample-then-truncate idea: seed
@@ -19,9 +19,11 @@ Python loop that reads the change count every iteration (one small sync
 per iteration on a local card). The centroid padding to a size class
 (`_k_pad_class`) and its `k_valid` mask existed only to bound XLA
 compiles and are dropped; the superset's size rule keeps its pow2
-rounding, which sets how many seeds the build draws. The two Pallas
-k-means kernels are not on this path (the JAX package enables them only
-with VSTPU_KMEANS_PALLAS=1 on a TPU).
+rounding, which sets how many seeds the build draws. Every pass runs
+through kernels/kmeans.assign_accumulate: on the card that is the CUDA
+assign and accumulate kernels (csrc/kmeans.cu) at any K, with no switch
+like VSTPU_KMEANS_PALLAS and no K bound like ASSIGN_K_MAX; on the CPU
+their plain versions.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ from vectorsearch_tpu import constants
 from vectorsearch_tpu.logger import sugar
 from vectorsearch_tpu.quant.layout import PackedVectors
 
-from ..device import check_exact_f32, resolve, to_device, to_host
-from ..kernels import cosine
+from ..device import resolve, to_device, to_host
+from ..kernels import kmeans as kmeans_kernels
 from .progress import tracker as _progress
 
 
@@ -78,30 +80,7 @@ def prepare_tiles(packed: PackedVectors, chunk: int, device=None):
 def _assign_and_accumulate(rows: PackedVectors, chunk: int, centroids):
     """One full Lloyd's pass: returns (sums f32[K,D], counts f32[K],
     assignments int32[N])."""
-    kk, d = centroids.shape
-    cn = cosine.l2_normalize(centroids)
-    c_sums = cn.sum(dim=-1)
-    cn_b = cn.bfloat16().float()
-    sums = torch.zeros((kk, d), dtype=torch.float32, device=centroids.device)
-    counts = torch.zeros((kk,), dtype=torch.float32, device=centroids.device)
-    cids = []
-    kcol = torch.arange(kk, device=centroids.device)
-    check_exact_f32(cn_b)
-    for lo in range(0, rows.n, chunk):
-        codes = rows.codes[lo : lo + chunk].float()
-        scale = rows.scale[lo : lo + chunk, None]
-        offset = rows.offset[lo : lo + chunk, None]
-        dots = codes @ cn_b.T  # [chunk, K]
-        sims = (offset * c_sums[None, :] + scale * dots) * (
-            rows.inv_norm[lo : lo + chunk, None]
-        )
-        cid = torch.argmax(sims, dim=-1)
-        onehot = (cid[:, None] == kcol[None, :]).float()  # [chunk, K]
-        # the one-hot lhs makes every product exact (0 or v)
-        sums += onehot.T @ (offset + scale * codes)
-        counts += onehot.sum(dim=0)
-        cids.append(cid.to(torch.int32))
-    return sums, counts, torch.cat(cids)
+    return kmeans_kernels.assign_accumulate(rows, centroids, chunk)
 
 
 def lloyd(

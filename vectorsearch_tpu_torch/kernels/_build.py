@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 `nvcc` compiles every source under vectorsearch_tpu_torch/csrc/ into one
-shared library with a plain C interface, loaded with ctypes. It runs at
-first use, never at import: the CPU test host has no nvcc. Output goes to
+shared library with a plain C interface, loaded with ctypes: one nvcc per
+`.cu` file, all started together, then one link. It runs at first use,
+never at import: the CPU test host has no nvcc. Output goes to
 csrc/_build/ (gitignored); the library's file name carries a hash of the
 sources and flags, so an edit to any source builds a new library, the way
 vectorsearch_tpu/native keys its rebuild on the source hash.
@@ -21,7 +22,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _OUT = os.path.join(_CSRC, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -59,12 +60,32 @@ def library_path() -> str:
         return so
     os.makedirs(_OUT, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}"
+    nvcc = _nvcc()
+    units = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(u)}.o" for u in units]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *FLAGS, "-c", u, "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for u, o in zip(units, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [(u, p.returncode, log) for u, p, log in zip(units, procs, logs)
+                  if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *FLAGS, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                failed = [("link", link.returncode, link.stderr + link.stdout)]
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{os.path.basename(u)} ({rc}):\n{log}" for u, rc, log in failed))
     os.replace(tmp, so)  # atomic: concurrent builders never load a torn file
     return so
 
@@ -76,11 +97,46 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(library_path())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.vs_grouped_scores_abi.argtypes = []
-            lib.vs_grouped_scores_abi.restype = i32
-            if lib.vs_grouped_scores_abi() != 1:
+            lib.vs_abi_version.argtypes = []
+            lib.vs_abi_version.restype = i32
+            if lib.vs_abi_version() != 2:
                 raise RuntimeError("kernel library ABI mismatch")
-            lib.vs_grouped_scores.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
-            lib.vs_grouped_scores.restype = i32
+            for name, argtypes in (
+                ("vs_grouped_scores", [ptr] * 9 + [i32] * 6 + [ptr]),
+                ("vs_kmeans_assign", [ptr] * 7 + [i32] * 3 + [ptr]),
+                ("vs_kmeans_accumulate", [ptr] * 7 + [i32] * 2 + [ptr]),
+            ):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = i32
             _LIB = lib
         return _LIB
+
+
+def launch_device(name: str, tensors):
+    """The one CUDA device of a kernel wrapper's `tensors`, or None when
+    all lie on the CPU (the wrapper then runs its plain version). Tensors
+    on another device type, or on several devices, raise: a kernel
+    launches or the call fails, never a silent fallback."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return None
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name}: tensors must share one CUDA device, got "
+            f"{[str(t.device) for t in tensors]}"
+        )
+    return dev
+
+
+def check_args(name: str, want: dict) -> None:
+    """Raise unless each argument `arg: (tensor, dtype, shape)` has that
+    dtype and shape and is contiguous and 16-byte aligned, as the kernels'
+    vector loads need."""
+    for arg, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {arg} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")

@@ -30,7 +30,7 @@ import torch
 from vectorsearch_tpu.quant.layout import PackedVectors
 
 from ..device import check_exact_f32
-from . import cosine
+from . import _build, cosine
 
 # kernel launches since import (or since a caller reset it to 0): lets a
 # run show that its main path went through the CUDA kernel
@@ -115,18 +115,12 @@ def grouped_scores(qg, qsum, gcl, codes, a, bv, bias, bs: int, want_bmax: bool):
     grouped_scores_ref; on CUDA tensors it launches the kernel or raises.
     """
     global LAUNCHES
-    args = (qg, qsum, gcl, codes, a, bv, bias)
-    if all(t.device.type == "cpu" for t in args):
+    dev = _build.launch_device("grouped_scores", (qg, qsum, gcl, codes, a, bv, bias))
+    if dev is None:
         return grouped_scores_ref(qg, qsum, gcl, codes, a, bv, bias, bs, want_bmax)
-    dev = qg.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
-        raise ValueError(
-            f"grouped_scores: tensors must share one CUDA device, got "
-            f"{[str(t.device) for t in args]}"
-        )
     g, qt, d = qg.shape
     kk, cap, dc = codes.shape
-    want = {
+    _build.check_args("grouped_scores", {
         "qg": (qg, torch.bfloat16, (g, qt, d)),
         "qsum": (qsum, torch.float32, (g, qt)),
         "gcl": (gcl, torch.int32, (g,)),
@@ -134,15 +128,7 @@ def grouped_scores(qg, qsum, gcl, codes, a, bv, bias, bs: int, want_bmax: bool):
         "a": (a, torch.float32, (kk, cap)),
         "bv": (bv, torch.float32, (kk, cap)),
         "bias": (bias, torch.float32, (kk, cap)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"grouped_scores: {name} must be {dtype} {shape}, got "
-                f"{t.dtype} {tuple(t.shape)}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"grouped_scores: {name} must be contiguous and 16-byte aligned")
+    })
     if qt not in (8, 16, 32):
         raise ValueError(f"grouped_scores: QT must be 8, 16 or 32, got {qt}")
     if d % 16 or cap % 64:
@@ -158,8 +144,6 @@ def grouped_scores(qg, qsum, gcl, codes, a, bv, bias, bs: int, want_bmax: bool):
     )
     if g == 0:
         return out, bmax
-    from . import _build
-
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.vs_grouped_scores(

@@ -1,0 +1,204 @@
+"""Lloyd's pass of the k-means build: the assign and accumulate CUDA
+kernels and their plain PyTorch versions.
+
+Counterpart of vectorsearch_tpu/kernels/pallas_kmeans.py. One pass over
+packed rows (PackedVectors of tensors) against centroids [K, D]:
+
+  assign      cid[n] = argmax_k (offset[n] * csum[k]
+                                 + scale[n] * <bf16 cn[k], codes[n]>) * inv_norm[n]
+              with cn the L2-normalized centroids and csum their f32 row sums
+  accumulate  sums[k] = sum over cid[n] = k of (offset[n] + scale[n] * codes[n]),
+              counts[k] = the number of such rows
+
+The kernels live in csrc/kmeans.cu. On CPU tensors each wrapper runs its
+plain version; on CUDA tensors it launches its kernel or raises. The
+plain versions walk the rows in chunks of `chunk`, which bounds their
+[chunk, K] intermediates; the kernels keep nothing of size N x K and take
+no chunk.
+
+Not carried over from the TPU module: the padding mask `kmask` (the port
+pads no centroid set), the `valid` row mask (the port's rows are all
+live), and the K <= 4096 bound ASSIGN_K_MAX, a limit of the TPU's VMEM:
+the CUDA kernels take any K.
+"""
+from __future__ import annotations
+
+import torch
+
+from vectorsearch_tpu.quant.layout import PackedVectors
+
+from ..device import check_exact_f32
+from . import _build, cosine
+
+# kernel launches since import (or since a caller reset them to 0): let a
+# run show that its build went through the CUDA kernels
+ASSIGN_LAUNCHES = 0
+ACCUMULATE_LAUNCHES = 0
+
+DEFAULT_CHUNK = 16_384
+
+
+# ---------------------------------------------------------- plain versions
+
+
+def assign_scores_ref(rows: PackedVectors, cn_bf16, csum):
+    """f32 [n, K] sims of `rows` against the bf16 centroids, widened to
+    f32 (exact products, f32 sums, TF32 off)."""
+    check_exact_f32(csum)
+    dots = rows.codes.float() @ cn_bf16.float().T
+    return (rows.offset[:, None] * csum[None, :] + rows.scale[:, None] * dots) * (
+        rows.inv_norm[:, None]
+    )
+
+
+def _chunk(rows: PackedVectors, lo: int, chunk: int) -> PackedVectors:
+    return PackedVectors(*[a[lo : lo + chunk] for a in rows])
+
+
+def assign_ref(rows: PackedVectors, cn_bf16, csum, chunk: int = DEFAULT_CHUNK):
+    """Plain version of `assign`: i32 [N] argmax of assign_scores_ref."""
+    cids = [
+        torch.argmax(assign_scores_ref(_chunk(rows, lo, chunk), cn_bf16, csum), dim=-1)
+        for lo in range(0, rows.n, chunk)
+    ]
+    if not cids:
+        return torch.empty((0,), dtype=torch.int32, device=rows.codes.device)
+    return torch.cat(cids).to(torch.int32)
+
+
+def accumulate_ref(rows: PackedVectors, cid, kk: int, chunk: int = DEFAULT_CHUNK):
+    """Plain version of `accumulate`: per-cluster sums f32 [K, D] of the
+    dequantized rows as an f32 one-hot product (every product is 0 or v,
+    exact), and counts f32 [K]."""
+    dev = rows.codes.device
+    sums = torch.zeros((kk, rows.codes.shape[1]), dtype=torch.float32, device=dev)
+    counts = torch.zeros((kk,), dtype=torch.float32, device=dev)
+    kcol = torch.arange(kk, device=dev)
+    check_exact_f32(sums)
+    for lo in range(0, rows.n, chunk):
+        part = _chunk(rows, lo, chunk)
+        v = part.offset[:, None] + part.scale[:, None] * part.codes.float()
+        onehot = (cid[lo : lo + chunk, None] == kcol[None, :]).float()  # [chunk, K]
+        sums += onehot.T @ v
+        counts += onehot.sum(dim=0)
+    return sums, counts
+
+
+def assign_accumulate_ref(rows: PackedVectors, centroids, chunk: int = DEFAULT_CHUNK):
+    """One Lloyd's pass in plain PyTorch: (sums f32 [K, D], counts f32
+    [K], cid i32 [N])."""
+    cn, csum, cn_bf16 = _normalize(centroids)
+    cid = assign_ref(rows, cn_bf16, csum, chunk)
+    sums, counts = accumulate_ref(rows, cid, cn.shape[0], chunk)
+    return sums, counts, cid
+
+
+def _normalize(centroids):
+    """The normalized centroids, their f32 row sums and their bf16 cast
+    (pallas_kmeans.py:162-163, :184)."""
+    cn = cosine.l2_normalize(centroids)
+    return cn, cn.sum(dim=-1), cn.bfloat16()
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _rows_spec(rows: PackedVectors) -> dict:
+    n, d = rows.codes.shape
+    return {
+        "codes": (rows.codes, torch.int8, (n, d)),
+        "scale": (rows.scale, torch.float32, (n,)),
+        "offset": (rows.offset, torch.float32, (n,)),
+        "inv_norm": (rows.inv_norm, torch.float32, (n,)),
+    }
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def assign(rows: PackedVectors, cn_bf16, csum, chunk: int = DEFAULT_CHUNK):
+    """Nearest centroid of every row: i32 [N].
+
+    rows: codes i8 [N, D], scale, offset, inv_norm f32 [N]; cn_bf16 bf16
+    [K, D], the normalized centroids; csum f32 [K], the f32 row sums of
+    the normalized centroids. On CPU tensors this is assign_ref (`chunk`
+    bounds its [chunk, K] sims); on CUDA tensors it launches the kernel
+    or raises."""
+    global ASSIGN_LAUNCHES
+    dev = _build.launch_device("assign", [*rows, cn_bf16, csum])
+    if dev is None:
+        return assign_ref(rows, cn_bf16, csum, chunk)
+    n, d = rows.codes.shape
+    kk = cn_bf16.shape[0]
+    _build.check_args("assign", {
+        **_rows_spec(rows),
+        "cn": (cn_bf16, torch.bfloat16, (kk, d)),
+        "csum": (csum, torch.float32, (kk,)),
+    })
+    if kk == 0 or d == 0:
+        raise ValueError(f"assign: needs K >= 1 and D >= 1, got K={kk} D={d}")
+    cid = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return cid
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.vs_kmeans_assign(
+            rows.codes.data_ptr(), rows.scale.data_ptr(), rows.offset.data_ptr(),
+            rows.inv_norm.data_ptr(), cn_bf16.data_ptr(), csum.data_ptr(),
+            cid.data_ptr(), n, d, kk, _stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"assign: kernel launch failed, cudaError {err}")
+    ASSIGN_LAUNCHES += 1
+    return cid
+
+
+def accumulate(rows: PackedVectors, cid, kk: int, chunk: int = DEFAULT_CHUNK):
+    """Per-cluster sums f32 [K, D] of the dequantized rows
+    offset + scale * codes, and member counts f32 [K]. Rows whose cid lies
+    outside [0, K) count nowhere.
+
+    On CPU tensors this is accumulate_ref; on CUDA tensors the rows are
+    ordered by cluster (a stable sort of cid, the kernel's segments) and
+    the kernel sums each segment, deterministically, or the call raises."""
+    global ACCUMULATE_LAUNCHES
+    dev = _build.launch_device("accumulate", [*rows, cid])
+    if dev is None:
+        return accumulate_ref(rows, cid, kk, chunk)
+    n, d = rows.codes.shape
+    _build.check_args("accumulate", {
+        **{k: v for k, v in _rows_spec(rows).items() if k != "inv_norm"},
+        "cid": (cid, torch.int32, (n,)),
+    })
+    if kk < 1 or d == 0:
+        raise ValueError(f"accumulate: needs K >= 1 and D >= 1, got K={kk} D={d}")
+    sums = torch.empty((kk, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((kk,), dtype=torch.float32, device=dev)
+    sorted_cid, order = torch.sort(cid, stable=True)
+    seg = torch.searchsorted(
+        sorted_cid, torch.arange(kk + 1, dtype=torch.int32, device=dev)
+    )
+    scale_s = rows.scale[order]
+    offset_s = rows.offset[order]
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.vs_kmeans_accumulate(
+            rows.codes.data_ptr(), scale_s.data_ptr(), offset_s.data_ptr(),
+            order.data_ptr(), seg.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+            d, kk, _stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"accumulate: kernel launch failed, cudaError {err}")
+    ACCUMULATE_LAUNCHES += 1
+    return sums, counts
+
+
+def assign_accumulate(rows: PackedVectors, centroids, chunk: int = DEFAULT_CHUNK):
+    """One Lloyd's pass: (sums f32 [K, D], counts f32 [K], cid i32 [N]).
+    The normalized centroids are cast to bf16 where the JAX package casts
+    them; their row sums stay f32."""
+    cn, csum, cn_bf16 = _normalize(centroids)
+    cid = assign(rows, cn_bf16.contiguous(), csum.contiguous(), chunk)
+    sums, counts = accumulate(rows, cid, cn.shape[0], chunk)
+    return sums, counts, cid
