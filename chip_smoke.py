@@ -15,24 +15,33 @@ Phases (any failure exits non-zero before the last line is printed):
         superset phase's 196,608 rows at K=16,384): cid equal except at
         near-ties, counts equal, sums within tolerance, and two accumulate
         launches bit-identical;
+     c. the s8 and bf16 flat band kernels on 1M x 768 clustered packed
+        rows with tombstones, B=512, at N=1M and at N=1M-300 (a partial
+        last tile): s8 band maxima bit-equal, bf16 within 1e-4 with the
+        same -inf pattern; TOP/s and GB/s derived from the kernel time;
   4. index at the bench's scale: bench.py's 1M x 768 clustered corpus and
      512 queries (recipe copied), exact-f32 ground truth, the k-means build
      with bench.py's arguments, IVFIndex.build, then IVFIndex.search at
      nprobe 1, 2, 8, 64 and -1 (recall@10 and QPS), 10,000 inserts that
      must find themselves first and 10,000 deletes that must never return;
-  5. engine: upload, rebuild (Engine.refresh_centroids), search,
+  5. flat: flat_search (k=10, k_bands=64) with the s8 and with the bf16
+     band kernel, and FlatIndex.search(refine=32) beside them, on phase
+     4's corpus, queries and truth: recall@10, no id twice in a result,
+     and the wall time per B=512 search;
+  6. engine: upload, rebuild (Engine.refresh_centroids), search,
      search_many, delete and a snapshot reboot through Engine, with the
      deterministic noop embedder;
-  6. the 10M build: bench_build.py's configuration, 10M x 768 clustered
+  7. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
      fixed seed, moved to host numpy once) -> build_centroids with k=4096
      and bench_build.py's arguments: build seconds, iterations, final
      churn, cluster sizes and peak device memory;
-  7. the kernels line, the card line, and the contract line.
+  8. the kernels line, the card line, and the contract line.
 
-Every kernel launch count is set to 0 just before each of phases 4-6 and
-read just after: phases 4 and 5 must launch all three kernels, phase 6
-both k-means kernels. The script imports only the port,
+Every kernel launch count is set to 0 just before each of phases 4-7 and
+read just after: phases 4 and 6 must launch the grouped scan and both
+k-means kernels, phase 5 both flat band kernels, phase 7 both k-means
+kernels. The script imports only the port,
 vectorsearch_tpu_torch (the codec, store and noop embedder through
 vectorsearch_tpu_torch.host), and checks at the end that jax was never
 imported.
@@ -69,6 +78,17 @@ TIE_ATOL = 1e-5  # a cid may differ only where the plain sims lie this close
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-4  # f32 sums of the same values in another order
 # bench_build.py's configuration (BASELINE config 4)
 BUILD_N, BUILD_K = 10_000_000, 4096
+# the flat search: bands kept per query, and the band kernels' corpus sizes
+# (whole tiles, and a partial last tile)
+FLAT_KBANDS = 64
+FLAT_SHAPES = (N, N - 300)
+# the kernels each phase run through run() must launch
+PHASE_KERNELS = {
+    "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "flat": ("flat_bands_s8", "flat_bands_bf16"),
+    "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "build10m": ("kmeans_assign", "kmeans_accumulate"),
+}
 
 
 def log(msg: str) -> None:
@@ -315,8 +335,79 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
     ]
 
 
+def phase_flat_kernels(torch, dev, smi: str) -> list:
+    """flat_bands_s8 and flat_bands_bf16 against their plain versions on
+    clustered packed rows made on the card, a hundredth of them dead, with
+    B queries near corpus rows, at each of FLAT_SHAPES; timed at the
+    first."""
+    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import flat as tf
+
+    n_max = max(FLAT_SHAPES)
+    parts = [p for _, p in packed_on_card(torch, dev, n_max, DIM, K_GEN, seed=2)]
+    full = layout.PackedVectors(*[torch.cat(a) for a in zip(*parts)])
+    del parts
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pick = torch.randint(0, n_max, (N_QUERIES,), generator=gen, device=dev)
+    q = full.offset[pick, None] + full.scale[pick, None] * full.codes[pick].float()
+    qn = cosine.l2_normalize(q + 0.1 * torch.randn(q.shape, generator=gen, device=dev))
+    qc, sq, qsum = cosine.quantize_queries(qn)
+    q_bf16 = qn.bfloat16()
+    live = torch.rand((n_max,), generator=gen, device=dev) > 0.01
+    a = full.scale * full.inv_norm
+    bv = full.offset * full.inv_norm
+    bias = torch.where(live, 0.0, float("-inf"))
+    res = {"flat_bands_s8": {}, "flat_bands_bf16": {}}
+    for n in FLAT_SHAPES:
+        corpus = (full.codes[:n], a[:n], bv[:n], bias[:n])
+        for name, fn, ref, args in (
+            ("flat_bands_s8", tf.flat_bands_s8, tf.flat_bands_s8_ref, (qc, sq, qsum, *corpus)),
+            ("flat_bands_bf16", tf.flat_bands_bf16, tf.flat_bands_bf16_ref,
+             (q_bf16, qsum, *corpus)),
+        ):
+            out = fn(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isneginf(out), torch.isneginf(want)):
+                raise AssertionError(f"{name} N={n}: -inf pattern differs from plain")
+            fin = torch.isfinite(want)
+            err = float((out[fin] - want[fin]).abs().max())
+            if name == "flat_bands_s8" and not torch.equal(out, want):
+                raise AssertionError(f"{name} N={n}: not bit-equal to plain (max err {err})")
+            if err > KERNEL_ATOL:
+                raise AssertionError(f"{name} N={n}: max |kernel - plain| {err} > {KERNEL_ATOL}")
+            r = {"max_abs_err": err}
+            if n == FLAT_SHAPES[0]:
+                r["ms"] = median_ms(torch, lambda: fn(*args))
+                r["plain_ms"] = median_ms(torch, lambda: ref(*args), 5)
+                r["TOP_per_s"] = 2 * N_QUERIES * n * DIM / r["ms"] / 1e9
+                tiles = -(-n // tf.TILE_N)
+                moved = n * DIM + 12 * n + N_QUERIES * tiles * tf.BAND_LANES * 4
+                r["GB_per_s"] = moved / r["ms"] / 1e6
+                log(f"{name} N={n} D={DIM} B={N_QUERIES}: kernel {r['ms']:.3f} ms vs plain "
+                    f"{r['plain_ms']:.3f} ms (median of 20 / 5, {smi}), "
+                    f"{r['TOP_per_s']:.1f} TOP/s, {r['GB_per_s']:.1f} GB/s, max |err| {err:.3g}")
+            else:
+                log(f"{name} N={n}: max |kernel - plain| {err:.3g}, -inf pattern equal")
+            res[name][n] = r
+            del out, want
+    del full, a, bv, bias
+    torch.cuda.empty_cache()
+    at = f"B={N_QUERIES}, N={FLAT_SHAPES[0]}, D={DIM}"
+    return [
+        {"name": name, "route": "cuda", "source": "vectorsearch_tpu_torch/csrc/flat.cu",
+         "replaces": f"vectorsearch_tpu/kernels/pallas_flat.py:{line}",
+         "max_abs_err": max(r["max_abs_err"] for r in res[name].values()),
+         "ms": res[name][FLAT_SHAPES[0]]["ms"], "plain_ms": res[name][FLAT_SHAPES[0]]["plain_ms"],
+         "ms_at": at, "by_n": res[name]}
+        for name, line in (("flat_bands_s8", 85), ("flat_bands_bf16", 54))
+    ]
+
+
 def phase_index(torch, dev, n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> dict:
-    """bench.py's corpus through the port's build and search."""
+    """bench.py's corpus through the port's build and search. The packed
+    corpus, the queries and the truth go on to phase_flat."""
     from vectorsearch_tpu_torch.build import build_centroids
     from vectorsearch_tpu_torch.device import check_exact_f32
     from vectorsearch_tpu_torch.host import layout
@@ -401,8 +492,59 @@ def phase_index(torch, dev, n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> d
         "recall": recalls, "qps": qps, "build_s": build_s, "pack_s": pack_s,
         "k": ivf.k_clusters, "cap": ivf.cap, "self_top1": self_top1,
         "deleted_returned": returned, "n_live": ivf.n_live,
-        "expected_live": n + m - gone.size,
+        "expected_live": n + m - gone.size, "flat_inputs": (packed, queries, truth),
     }
+
+
+def phase_flat(torch, dev, packed, queries, truth) -> dict:
+    """flat_search with each band kernel, and the streamed scan
+    FlatIndex.search(refine=32) that serves today, on phase_index's corpus
+    and queries against its exact-f32 truth (row numbers)."""
+    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.index import FlatIndex
+    from vectorsearch_tpu_torch.kernels import flat as tf
+
+    n, b = packed.codes.shape[0], queries.shape[0]
+
+    def judge(s, i):
+        """recall@10 against the truth, results with an id twice, and
+        whether every score is a finite cosine of the expected shape."""
+        return {
+            "recall": float(np.mean([len(set(i[r]) & set(truth[r])) / TOPK for r in range(b)])),
+            "repeats": int(sum(len(set(row)) < TOPK for row in i)),
+            "finite": bool(s.shape == (b, TOPK) and np.isfinite(s).all()
+                           and (np.abs(s) <= 1 + 1e-5).all()),
+        }
+
+    def wall_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = {}
+    corpus = layout.PackedVectors(*[torch.from_numpy(a).to(dev) for a in packed])
+    q = torch.from_numpy(queries).to(dev)
+    for use_s8, name in ((True, "s8"), (False, "bf16")):
+        def search():
+            return tf.flat_search(q, corpus, n, k=TOPK, k_bands=FLAT_KBANDS, use_s8=use_s8)
+
+        out[name] = judge(*(t.cpu().numpy() for t in search()))
+        out[name]["wall_ms"] = wall_ms(search)
+        log(f"flat_search {name} (k={TOPK}, k_bands={FLAT_KBANDS}): recall@10 "
+            f"{out[name]['recall']:.4f}, {out[name]['wall_ms']:.3f} ms per B={b} search "
+            f"(host clock, synchronized), {out[name]['repeats']} results with a repeated id")
+    del corpus
+    torch.cuda.empty_cache()
+    flat = FlatIndex.from_packed(packed, np.arange(n, dtype=np.int64), device=dev)
+    out["flatindex"] = judge(*flat.search(queries, k=TOPK, refine=REFINE))
+    out["flatindex"]["wall_ms"] = wall_ms(lambda: flat.search(queries, k=TOPK, refine=REFINE))
+    log(f"FlatIndex.search refine={REFINE}: recall@10 {out['flatindex']['recall']:.4f}, "
+        f"{out['flatindex']['wall_ms']:.3f} ms per B={b} search")
+    return out
 
 
 def phase_engine(torch, dev, n_docs=2_000) -> dict:
@@ -505,27 +647,33 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    from vectorsearch_tpu_torch.kernels import flat as tf
     from vectorsearch_tpu_torch.kernels import grouped_scan
     from vectorsearch_tpu_torch.kernels import kmeans as km
 
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
     phase_build()
-    entries = [phase_kernel(torch, dev, smi), *phase_kmeans_kernels(torch, dev, smi)]
+    entries = [phase_kernel(torch, dev, smi), *phase_kmeans_kernels(torch, dev, smi),
+               *phase_flat_kernels(torch, dev, smi)]
 
     def run(phase, fn):
         """fn() with every launch count set to 0 just before and read just
         after: the main path's own launches."""
         grouped_scan.LAUNCHES = km.ASSIGN_LAUNCHES = km.ACCUMULATE_LAUNCHES = 0
+        tf.S8_LAUNCHES = tf.BF16_LAUNCHES = 0
         out = fn()
         launches[phase] = {"grouped_scores": grouped_scan.LAUNCHES,
                            "kmeans_assign": km.ASSIGN_LAUNCHES,
-                           "kmeans_accumulate": km.ACCUMULATE_LAUNCHES}
+                           "kmeans_accumulate": km.ACCUMULATE_LAUNCHES,
+                           "flat_bands_s8": tf.S8_LAUNCHES,
+                           "flat_bands_bf16": tf.BF16_LAUNCHES}
         log(f"launches in the {phase} phase: {launches[phase]}")
         return out
 
     launches = {}
     idx = run("index", lambda: phase_index(torch, dev))
+    flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
     eng = run("engine", lambda: phase_engine(torch, dev))
     torch.cuda.empty_cache()
     b10 = run("build10m", lambda: phase_build10m(torch, dev))
@@ -535,11 +683,15 @@ def main() -> int:
         floor = MIN_RECALL.get(nprobe, MIN_RECALL_WIDE)
         if r < floor:
             failures.append(f"recall@10 {r:.4f} < {floor} at nprobe={nprobe}")
-    for phase, names in (("index", None), ("engine", None),
-                         ("build10m", ("kmeans_assign", "kmeans_accumulate"))):
-        idle = [k for k, v in launches[phase].items() if (names is None or k in names) and not v]
+    for phase, names in PHASE_KERNELS.items():
+        idle = [k for k in names if not launches[phase][k]]
         if idle:
             failures.append(f"not launched in the {phase} phase: {idle}")
+    for name, r in flat.items():
+        if r["recall"] < MIN_RECALL_WIDE:
+            failures.append(f"flat {name}: recall@10 {r['recall']:.4f} < {MIN_RECALL_WIDE}")
+        if r["repeats"] or not r["finite"]:
+            failures.append(f"flat {name}: {r}")
     if idx["self_top1"] < 1.0:
         failures.append(f"inserted rows found themselves first in {idx['self_top1']:.4f}")
     if idx["deleted_returned"] or idx["n_live"] != idx["expected_live"]:

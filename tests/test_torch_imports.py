@@ -7,7 +7,7 @@ import sys
 import pytest
 import torch
 
-from vectorsearch_tpu_torch.kernels import grouped_scan
+from vectorsearch_tpu_torch.kernels import flat, grouped_scan
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,4 +82,26 @@ def test_wrapper_refuses_non_cpu_non_cuda_tensors():
     out, bmax = grouped_scan.grouped_scores(*_args("cpu"), 64, True)
     assert out.shape == (2, 8, 64) and bmax.shape == (2, 8, 1)
     assert grouped_scan.LAUNCHES == before
+
+
+def _flat_args(device, b=3, n=1500, d=16):
+    corpus = (torch.zeros((n, d), dtype=torch.int8, device=device),
+              *(torch.zeros((n,), device=device) for _ in range(3)))
+    qsum = torch.zeros((b,), device=device)
+    s8 = (torch.zeros((b, d), dtype=torch.int8, device=device), torch.ones((b,), device=device),
+          qsum, *corpus)
+    return s8, (torch.zeros((b, d), dtype=torch.bfloat16, device=device), qsum, *corpus)
+
+
+def test_flat_wrappers_refuse_non_cpu_non_cuda_tensors():
+    before = (flat.S8_LAUNCHES, flat.BF16_LAUNCHES)
+    s8, bf16 = _flat_args("meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        flat.flat_bands_s8(*s8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flat.flat_bands_bf16(*bf16)
+    s8, bf16 = _flat_args("cpu")
+    assert flat.flat_bands_s8(*s8).shape == (3, 2 * 128)
+    assert flat.flat_bands_bf16(*bf16).shape == (3, 2 * 128)
+    assert (flat.S8_LAUNCHES, flat.BF16_LAUNCHES) == before
 

@@ -13,7 +13,10 @@ Tolerances, kernel vs plain:
   in another order);
 - k-means accumulate: for the same cid, equal counts and sums within
   rtol 1e-5 / atol 1e-4 (f32 sums in another order); two launches give
-  bit-identical sums.
+  bit-identical sums;
+- flat bands: s8 bit-equal (exact integer dots, the plain version's
+  roundings); bf16 within atol 1e-4 (f32 sums in another order) with the
+  same -inf pattern.
 """
 import functools
 import importlib
@@ -25,7 +28,8 @@ import torch
 from vectorsearch_tpu.quant import layout
 from vectorsearch_tpu.quant.layout import PackedVectors
 from vectorsearch_tpu_torch.index import IVFIndex
-from vectorsearch_tpu_torch.kernels import _build, grouped_scan
+from vectorsearch_tpu_torch.kernels import _build, cosine, grouped_scan
+from vectorsearch_tpu_torch.kernels import flat as tf
 from vectorsearch_tpu_torch.kernels import kmeans as km
 
 # the package exports a `kmeans` function that shadows the module name
@@ -133,6 +137,13 @@ def test_no_library_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         km.accumulate(rows, torch.zeros(1000, dtype=torch.int32, device=cuda), 5)
     assert (km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES) == before
+    s8, bf16 = _flat_args(cuda, 1000, 512, 8)
+    before = (tf.S8_LAUNCHES, tf.BF16_LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tf.flat_bands_s8(*s8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tf.flat_bands_bf16(*bf16)
+    assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == before
 
 
 def test_rejects_bad_input(cuda):
@@ -277,3 +288,87 @@ def test_lloyd_on_card_matches_cpu(cuda):
     assert gpu.iterations == cpu.iterations
     assert km.ASSIGN_LAUNCHES - a0 == gpu.iterations
     assert km.ACCUMULATE_LAUNCHES - c0 == gpu.iterations
+
+
+# ------------------------------------------------------------- flat bands
+
+
+def _flat_args(device, n, d, b):
+    """Arguments of the two band kernels on seeded clustered rows, a tenth
+    of them dead, and queries near corpus rows: (s8 args, bf16 args)."""
+    packed = _packed_blobs(n, d)
+    rng = np.random.default_rng(n + d + b)
+    v = layout.unpack(packed)
+    qn = v[rng.integers(0, n, size=b)] + 0.1 * rng.standard_normal((b, d), dtype=np.float32)
+    qn = cosine.l2_normalize(torch.from_numpy(qn).to(device))
+    rows = PackedVectors(*[torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in packed])
+    live = torch.from_numpy(rng.random(n) > 0.1).to(device)
+    corpus = (rows.codes, rows.scale * rows.inv_norm, rows.offset * rows.inv_norm,
+              torch.where(live, 0.0, float("-inf")))
+    qc, sq, qsum = cosine.quantize_queries(qn)
+    return (qc, sq, qsum, *corpus), (qn.bfloat16(), qsum, *corpus)
+
+
+@pytest.mark.parametrize("b", [1, 8, 512])
+@pytest.mark.parametrize("n", [1, 1000, 5000, 65537])
+@pytest.mark.parametrize("d", [100, 768])
+@pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
+def test_flat_bands_match_plain(cuda, use_s8, d, n, b):
+    s8, bf16 = _flat_args(cuda, n, d, b)
+    before = (tf.S8_LAUNCHES, tf.BF16_LAUNCHES)
+    if use_s8:
+        out, ref = tf.flat_bands_s8(*s8), tf.flat_bands_s8_ref(*s8, chunk=8192)
+    else:
+        out, ref = tf.flat_bands_bf16(*bf16), tf.flat_bands_bf16_ref(*bf16, chunk=8192)
+    torch.cuda.synchronize()
+    assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == (before[0] + use_s8,
+                                                  before[1] + (not use_s8))
+    assert out.shape == (b, -(-n // 1024) * 128)
+    if use_s8:
+        assert torch.equal(out, ref)
+    else:
+        assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+        fin = torch.isfinite(ref)
+        torch.testing.assert_close(out[fin], ref[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
+def test_flat_search_on_card_matches_cpu(cuda, use_s8):
+    """flat_search on the card (band kernel, exact band top-k, rescore)
+    against the same call on the CPU (the plain band version), with
+    tombstones and a partial last tile: refined scores atol 1e-5, the same
+    ids above the near-ties at each row's cut, no id twice."""
+    n, d = 20_000, 128
+    packed = _packed_blobs(n, d)
+    rng = np.random.default_rng(9)
+    q = layout.unpack(packed)[rng.integers(0, n, size=64)] + 0.05
+    mask = rng.random(n) > 0.1
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        rows = PackedVectors(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in packed])
+        s, i = tf.flat_search(torch.from_numpy(q).to(dev), rows, n - 100, k=10,
+                              valid_mask=torch.from_numpy(mask).to(dev), use_s8=use_s8)
+        out.append((s.cpu().numpy(), i.cpu().numpy()))
+    (s_g, i_g), (s_c, i_c) = out
+    np.testing.assert_allclose(s_g, s_c, atol=1e-5)
+    assert np.isfinite(s_g).all() and mask[i_g].all() and (i_g < n - 100).all()
+    for sg, ig, sc, ic in zip(s_g, i_g, s_c, i_c):
+        assert len(set(ig)) == len(ig)
+        cut = sg.min() + 1e-5
+        assert set(ig[sg > cut]) == set(ic[sc > cut])
+
+
+def test_flat_wrappers_refuse_bad_input(cuda):
+    s8, bf16 = _flat_args(cuda, 1000, 128, 8)
+    with pytest.raises(ValueError, match="qc"):
+        tf.flat_bands_s8(s8[0].float(), *s8[1:])
+    with pytest.raises(ValueError, match="codes"):
+        tf.flat_bands_s8(*s8[:3], s8[3][:, :64].contiguous(), *s8[4:])
+    with pytest.raises(ValueError, match="bias"):
+        tf.flat_bands_s8(*s8[:6], s8[6][:-1])
+    with pytest.raises(ValueError, match="CUDA device"):
+        tf.flat_bands_s8(*s8[:3], s8[3].cpu(), *s8[4:])
+    with pytest.raises(ValueError, match="q must"):
+        tf.flat_bands_bf16(bf16[0].float(), *bf16[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.flat_bands_bf16(bf16[0], bf16[1], bf16[2].t().contiguous().t(), *bf16[3:])

@@ -219,7 +219,7 @@ grouped_scores_kernel(const __nv_bfloat16* __restrict__ qg,
 
 // the library's ABI version: bumped whenever an entry point of any source
 // under csrc/ is added or changes its arguments
-extern "C" int vs_abi_version() { return 2; }
+extern "C" int vs_abi_version() { return 3; }
 
 extern "C" int vs_grouped_scores(const void* qg, const void* qsum,
                                  const void* gcl, const void* codes,

@@ -1,0 +1,220 @@
+"""Band-max flat search: the s8 and bf16 band kernels, their plain
+PyTorch versions, and flat_search around them.
+
+Counterpart of vectorsearch_tpu/kernels/pallas_flat.py. The corpus is cut
+into tiles of TILE_N = 1024 rows; band `lane` of a tile is its 8 rows
+congruent to lane mod 128, and its score is the maximum of their affine
+scores
+
+    s8:    (sq[b] * a[r]) * <qc[b], codes[r]> + qsum[b] * bv[r] + bias[r]
+    bf16:  a[r] * <q[b], codes[r]> + qsum[b] * bv[r] + bias[r]
+
+with a = scale * inv_norm, bv = offset * inv_norm and bias 0 for a live
+row or -inf for a dead one. flat_search then takes the top bands, expands
+each to its 8 rows and rescores those exactly (cosine.rescore_topk). A
+true top-k row lies in a band whose maximum is at least its coarse score,
+so the only loss is other bands crowding its band out of the top k_bands.
+
+The kernels live in csrc/flat.cu. On CPU tensors each wrapper runs its
+plain version; on CUDA tensors it launches its kernel or raises.
+
+Not carried over from the TPU module: the padding of the corpus to whole
+tiles (the kernels score rows past N as -inf without reading them), the
+query padding to TILE_Q, the [tiles, B, 128] output and its moveaxis (the
+bands are written query-major, [B, tiles * 128]), and approx_max_k: the
+band top-k is exact.
+"""
+from __future__ import annotations
+
+import torch
+
+from vectorsearch_tpu.quant.layout import PackedVectors
+
+from ..device import check_exact_f32
+from . import _build, cosine
+
+TILE_N = 1024  # corpus rows per tile
+BAND_LANES = 128  # bands per tile
+GROUPS = TILE_N // BAND_LANES  # rows per band
+
+# kernel launches since import (or since a caller reset them to 0): let a
+# run show that its search went through the CUDA kernels
+S8_LAUNCHES = 0
+BF16_LAUNCHES = 0
+
+DEFAULT_CHUNK = 64 * TILE_N  # corpus rows per step of the plain versions
+
+
+def n_tiles(n: int) -> int:
+    return -(-n // TILE_N)
+
+
+# ---------------------------------------------------------- plain versions
+
+
+def _bands_ref(scores_fn, b: int, n: int, dev, chunk: int):
+    """Band maxima f32 [b, tiles * 128] of scores_fn(lo, hi) -> f32 [b,
+    hi - lo], walked in row chunks of `chunk` (a multiple of TILE_N); rows
+    past n score -inf."""
+    if chunk % TILE_N:
+        raise ValueError(f"chunk must be a multiple of {TILE_N}, got {chunk}")
+    out = torch.empty((b, n_tiles(n) * BAND_LANES), dtype=torch.float32, device=dev)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        t = n_tiles(hi - lo)
+        s = torch.nn.functional.pad(scores_fn(lo, hi), (0, t * TILE_N - (hi - lo)),
+                                    value=cosine.NEG_INF)
+        t0 = lo // TILE_N
+        out[:, t0 * BAND_LANES : (t0 + t) * BAND_LANES] = (
+            s.reshape(b, t, GROUPS, BAND_LANES).amax(2).reshape(b, t * BAND_LANES)
+        )
+    return out
+
+
+def flat_bands_s8_ref(qc, sq, qsum, codes, a, bv, bias, chunk: int = DEFAULT_CHUNK):
+    """Plain version of flat_bands_s8: exact int8 dots (cosine._int_dots),
+    then the sidecars in the kernel's order of roundings."""
+
+    def scores(lo, hi):
+        dots = cosine._int_dots(qc, codes[lo:hi])
+        return ((sq[:, None] * a[None, lo:hi]) * dots
+                + qsum[:, None] * bv[None, lo:hi] + bias[None, lo:hi])
+
+    return _bands_ref(scores, qc.shape[0], codes.shape[0], codes.device, chunk)
+
+
+def flat_bands_bf16_ref(q, qsum, codes, a, bv, bias, chunk: int = DEFAULT_CHUNK):
+    """Plain version of flat_bands_bf16: the bf16 queries and the codes
+    widened to f32 (exact products, f32 sums, TF32 off)."""
+    check_exact_f32(q)
+
+    def scores(lo, hi):
+        dots = q.float() @ codes[lo:hi].float().T
+        return a[None, lo:hi] * dots + qsum[:, None] * bv[None, lo:hi] + bias[None, lo:hi]
+
+    return _bands_ref(scores, q.shape[0], codes.shape[0], codes.device, chunk)
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _corpus_spec(codes, a, bv, bias, d: int) -> dict:
+    n = codes.shape[0]
+    return {
+        "codes": (codes, torch.int8, (n, d)),
+        "a": (a, torch.float32, (n,)),
+        "bv": (bv, torch.float32, (n,)),
+        "bias": (bias, torch.float32, (n,)),
+    }
+
+
+def _launch(name: str, args, out, n: int, d: int) -> None:
+    """Launch kernel vs_<name> on `args` (checked tensors, N corpus rows of
+    D dims) into `out`, f32 [B, tiles * 128], on the current stream; raise
+    on a build or launch error."""
+    if d == 0:
+        raise ValueError(f"{name}: needs D >= 1")
+    dev = out.device
+    fn = getattr(_build.load(), f"vs_{name}")
+    with torch.cuda.device(dev):
+        err = fn(*[t.data_ptr() for t in args], out.data_ptr(), out.shape[0], n, d,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+
+
+def _empty_bands(b: int, n: int, dev):
+    return torch.empty((b, n_tiles(n) * BAND_LANES), dtype=torch.float32, device=dev)
+
+
+def flat_bands_s8(qc, sq, qsum, codes, a, bv, bias):
+    """Band maxima f32 [B, tiles * 128] of the s8 scores.
+
+    qc i8 [B, D] symmetric query codes, sq f32 [B] their scales, qsum f32
+    [B] the sums of the normalized queries; codes i8 [N, D]; a, bv, bias
+    f32 [N]. On CPU tensors this is flat_bands_s8_ref; on CUDA tensors it
+    launches the kernel or raises."""
+    global S8_LAUNCHES
+    args = (qc, sq, qsum, codes, a, bv, bias)
+    dev = _build.launch_device("flat_bands_s8", args)
+    if dev is None:
+        return flat_bands_s8_ref(*args)
+    b, d = qc.shape
+    _build.check_args("flat_bands_s8", {
+        "qc": (qc, torch.int8, (b, d)),
+        "sq": (sq, torch.float32, (b,)),
+        "qsum": (qsum, torch.float32, (b,)),
+        **_corpus_spec(codes, a, bv, bias, d),
+    })
+    n = codes.shape[0]
+    out = _empty_bands(b, n, dev)
+    if out.numel():
+        _launch("flat_bands_s8", args, out, n, d)
+        S8_LAUNCHES += 1
+    return out
+
+
+def flat_bands_bf16(q, qsum, codes, a, bv, bias):
+    """Band maxima f32 [B, tiles * 128] of the bf16 scores.
+
+    q bf16 [B, D] the normalized queries, qsum f32 [B] their f32 sums;
+    codes i8 [N, D]; a, bv, bias f32 [N]. On CPU tensors this is
+    flat_bands_bf16_ref; on CUDA tensors it launches the kernel or
+    raises."""
+    global BF16_LAUNCHES
+    args = (q, qsum, codes, a, bv, bias)
+    dev = _build.launch_device("flat_bands_bf16", args)
+    if dev is None:
+        return flat_bands_bf16_ref(*args)
+    b, d = q.shape
+    _build.check_args("flat_bands_bf16", {
+        "q": (q, torch.bfloat16, (b, d)),
+        "qsum": (qsum, torch.float32, (b,)),
+        **_corpus_spec(codes, a, bv, bias, d),
+    })
+    n = codes.shape[0]
+    out = _empty_bands(b, n, dev)
+    if out.numel():
+        _launch("flat_bands_bf16", args, out, n, d)
+        BF16_LAUNCHES += 1
+    return out
+
+
+# ------------------------------------------------------------ flat search
+
+
+def flat_search(queries, corpus: PackedVectors, n_valid, k: int, k_bands: int = 64,
+                valid_mask=None, use_s8: bool = True):
+    """Large-batch flat search: band sketch -> top bands -> their rows ->
+    exact f32 rescore (pallas_flat.flat_search_pallas).
+
+    queries f32 [B, D] on the corpus's device; corpus PackedVectors of
+    tensors [N, D]; rows at or past n_valid, and rows whose valid_mask
+    (bool [N]) is False, are dead. Returns (scores f32 [B, k], idx i32
+    [B, k]): exact f32 cosines of the returned rows, best first, -inf
+    where fewer than k live rows were found."""
+    n = corpus.codes.shape[0]
+    dev = corpus.codes.device
+    qn = cosine.l2_normalize(queries.float())
+    qsum = qn.sum(dim=-1)
+    live = torch.arange(n, device=dev) < n_valid
+    if valid_mask is not None:
+        live = live & valid_mask
+    a = corpus.scale * corpus.inv_norm
+    bv = corpus.offset * corpus.inv_norm
+    bias = torch.where(live, 0.0, cosine.NEG_INF)
+    if use_s8:
+        qc, sq, _ = cosine.quantize_queries(qn)
+        bands = flat_bands_s8(qc, sq, qsum, corpus.codes, a, bv, bias)
+    else:
+        bands = flat_bands_bf16(qn.bfloat16(), qsum, corpus.codes, a, bv, bias)
+    kb = min(k_bands, bands.shape[1])
+    _, band = torch.topk(bands, kb, dim=-1)  # exact: approx_max_k is not carried
+    j = torch.arange(GROUPS, device=dev) * BAND_LANES
+    rows = ((band // BAND_LANES) * TILE_N + band % BAND_LANES)[:, :, None] + j
+    rows = rows.reshape(band.shape[0], kb * GROUPS).to(torch.int32)
+    # the corpus is not padded: a band of the last tile expands to rows
+    # past N, which rescore_topk would clamp to row N - 1 and score as a
+    # copy of it; they enter dead
+    cand = torch.where(rows < n, 0.0, cosine.NEG_INF)
+    return cosine.rescore_topk(queries, corpus, cand, rows, k, valid=live)
