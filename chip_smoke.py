@@ -31,28 +31,48 @@ Phases (any failure exits non-zero before the last line is printed):
   6. engine: upload, rebuild (Engine.refresh_centroids), search,
      search_many, delete and a snapshot reboot through Engine, with the
      deterministic noop embedder;
-  7. the 10M build: bench_build.py's configuration, 10M x 768 clustered
+  7. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
+     this process, on a free localhost port over a temporary SQLite store
+     and snapshot dir, with a deterministic embedder at D=768 (a text's
+     first number names a document; its vector is bench.py's recipe).
+     Boot 1 takes 200,000 documents in 200 uploads of 1,000 and stops
+     (the engine writes its snapshot); boot 2 restores it, rebuilds at
+     startup (both k-means kernels), and over HTTP: 1,000 sampled
+     documents each find themselves first at centroids 8 and -1; single
+     searches at centroids 1 and 8 from one client and from 16 at once
+     (p50/p99 ms, requests/s); batched texts searches of 256 (queries/s);
+     100 deletes that never come back; a chat stream; /api/stats naming
+     the card. Then `python -m vectorsearch_tpu_torch` with the noop
+     embedder boots, answers an upload and a search, and exits 0 on
+     SIGTERM;
+  8. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
      fixed seed, moved to host numpy once) -> build_centroids with k=4096
      and bench_build.py's arguments: build seconds, iterations, final
      churn, cluster sizes and peak device memory;
-  8. the kernels line, the card line, and the contract line.
+  9. the kernels line, the card line, and the contract line.
 
-Every kernel launch count is set to 0 just before each of phases 4-7 and
-read just after: phases 4 and 6 must launch the grouped scan and both
-k-means kernels, phase 5 both flat band kernels, phase 7 both k-means
+Every kernel launch count is set to 0 just before each of phases 4-8 and
+read just after: phases 4, 6 and 7 must launch the grouped scan and both
+k-means kernels, phase 5 both flat band kernels, phase 8 both k-means
 kernels. The script imports only the port,
-vectorsearch_tpu_torch (the codec, store and noop embedder through
-vectorsearch_tpu_torch.host), and checks at the end that jax was never
-imported.
+vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
+through vectorsearch_tpu_torch.host), and checks at the end that jax was
+never imported.
 """
 from __future__ import annotations
 
+import contextlib
+import http.client
 import json
 import os
+import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -82,11 +102,23 @@ BUILD_N, BUILD_K = 10_000_000, 4096
 # (whole tiles, and a partial last tile)
 FLAT_KBANDS = 64
 FLAT_SHAPES = (N, N - 300)
+# the server phase: documents uploaded over HTTP (SERVER_UPLOAD a request),
+# documents sampled for the self-searches, single searches timed from one
+# client, then SERVER_PER_CLIENT from each of SERVER_CLIENTS at once, batched
+# texts requests of SERVER_BATCH_Q, and deletes
+SERVER_DOCS, SERVER_UPLOAD = 200_000, 1_000
+SERVER_SAMPLE, SERVER_SINGLE = 1_000, 200
+SERVER_CLIENTS, SERVER_PER_CLIENT = 16, 100
+SERVER_NPROBES = (1, 8)
+SERVER_BATCH_Q, SERVER_BATCH_ROUNDS = 256, 5
+SERVER_DELETE = 100
+CHAT_REPLY = "chat reply"
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "flat": ("flat_bands_s8", "flat_bands_bf16"),
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
 }
 
@@ -598,6 +630,381 @@ def phase_engine(torch, dev, n_docs=2_000) -> dict:
     return out
 
 
+def clustered_ai(dim=DIM, k=K_GEN, seed=5):
+    """The server phase's embedder: the first integer in a text names a
+    document, and its vector is bench.py's recipe (2 * center + unit noise,
+    k centers) drawn from that number and a fixed seed. A query that names
+    a document therefore embeds exactly as the document did."""
+    from vectorsearch_tpu_torch.host import AIProvider, codec
+
+    centers = np.random.default_rng(seed).standard_normal((k, dim), dtype=np.float32)
+
+    def vector(n):
+        rng = np.random.default_rng((seed, n))
+        return centers[rng.integers(k)] * np.float32(2.0) + rng.standard_normal(
+            dim, dtype=np.float32)
+
+    class ClusteredAI(AIProvider):
+        def can_embed(self):
+            return True
+
+        def can_generate(self):
+            return True
+
+        def can_chat(self):
+            return True
+
+        def embed(self, inputs, model=None):
+            nums = [int(re.search(r"\d+", t).group()) for t in inputs]
+            return list(codec.quantize(np.stack([vector(n) for n in nums])))
+
+        def generate(self, prompt, model=None):
+            return CHAT_REPLY
+
+        def generate_stream(self, prompt, model=None):
+            yield CHAT_REPLY
+
+        def chat(self, messages, model=None):
+            return CHAT_REPLY
+
+        def chat_stream(self, messages, model=None):
+            yield from CHAT_REPLY.partition(" ")
+
+        def embed_ctx_num(self):
+            return 8192  # one section per document
+
+    return ClusteredAI()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_listening(port, alive, timeout) -> None:
+    """Until the port accepts a connection; `alive()` false fails."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            if not alive() or time.monotonic() > deadline:
+                raise AssertionError(f"nothing listens on port {port}") from None
+            time.sleep(0.1)
+
+
+class Client:
+    """One keep-alive HTTP/1.1 connection (the standard library's client)."""
+
+    def __init__(self, port):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+
+    def call(self, method, path, obj=None):
+        """(status, headers, body): JSON bodies decoded, others as bytes."""
+        body = None if obj is None else json.dumps(obj).encode()
+        self.conn.request(method, path, body=body)
+        r = self.conn.getresponse()
+        raw = r.read()
+        ctype = r.getheader("Content-Type", "")
+        return r.status, dict(r.getheaders()), (
+            json.loads(raw) if ctype.startswith("application/json") else raw)
+
+    def post(self, path, obj):
+        status, _, out = self.call("POST", path, obj)
+        if status != 200:
+            raise AssertionError(f"POST {path}: HTTP {status} {out}")
+        return out
+
+
+def fan_out(port, n_clients, jobs):
+    """jobs (callables of a Client) over n_clients threads, each with its
+    own connection; returns (results in order, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    local = threading.local()
+
+    def one(job):
+        if not hasattr(local, "client"):
+            local.client = Client(port)
+        return job(local.client)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(n_clients) as ex:
+        out = list(ex.map(one, jobs))
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def serving(entry, cfg, ai, port):
+    """The port's entry, run() in a thread of this process, until the
+    block ends; yields the seconds it took to listen."""
+    stop, rc = threading.Event(), []
+    thread = threading.Thread(target=lambda: rc.append(entry.run(cfg, ai, stop)))
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        wait_listening(port, thread.is_alive, 600)
+        yield time.perf_counter() - t0
+    finally:
+        stop.set()
+        thread.join(600)
+    if thread.is_alive() or rc != [0]:
+        raise AssertionError(f"the server did not stop cleanly (run() returned {rc})")
+
+
+def phase_server(torch, dev, smi, n_docs=SERVER_DOCS, n_sample=SERVER_SAMPLE,
+                 per_client=SERVER_PER_CLIENT) -> dict:
+    """The port's entry served over HTTP: boot 1 takes the uploads, boot 2
+    rebuilds at startup and answers the searches, deletes, chat and stats;
+    then `python -m vectorsearch_tpu_torch` is started as users start it."""
+    from vectorsearch_tpu_torch import __main__ as entry
+    from vectorsearch_tpu_torch.host import config
+
+    out, failures = {"docs": n_docs}, []
+    ai = clustered_ai()
+    engines = []
+
+    class RecordedEngine(entry.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    def search(c, n, centroids, count=10):
+        return c.post("/api/search", {"owner": "o", "category": "c",
+                                      "text": f"document {n}", "count": count,
+                                      "centroids": centroids})["documents"]
+
+    entry.Engine = RecordedEngine
+    try:
+        with tempfile.TemporaryDirectory(prefix="vs_server_") as tmp:
+            port = free_port()
+            cfg = config.Config.parse(json.dumps({
+                "server": {"http_address": f"127.0.0.1:{port}", "https_address": ""},
+                "database": {"sqlite": os.path.join(tmp, "store.db"),
+                             "snapshots": os.path.join(tmp, "snaps")},
+                "log_level": "warn",
+            }))
+
+            # ---- boot 1: the uploads, SERVER_UPLOAD documents a request
+            ids = {}
+            with serving(entry, cfg, ai, port) as out["boot1_listen_s"]:
+                # the startup rebuild of this boot finds an empty store; let
+                # it end first, so that boot 2's is the one that clusters
+                for t in threading.enumerate():
+                    if t.name == "vstpu-startup":
+                        t.join()
+
+                def upload(start):
+                    def job(c):
+                        nums = range(start, min(start + SERVER_UPLOAD, n_docs))
+                        got = c.post("/api/upload", {"owner": "o", "category": "c", "documents": [
+                            {"name": f"d{n}", "document": {"text": f"document {n}"}} for n in nums]})
+                        return dict(zip(nums, got["document_ids"]))
+                    return job
+
+                pages, out["upload_s"] = fan_out(
+                    port, 4, [upload(s) for s in range(0, n_docs, SERVER_UPLOAD)])
+                for p in pages:
+                    ids.update(p)
+                _, _, stats = Client(port).call("GET", "/api/stats")
+            out["upload_docs_per_s"] = n_docs / out["upload_s"]
+            if len(ids) != n_docs or len(set(ids.values())) != n_docs:
+                failures.append(f"upload gave {len(set(ids.values()))} ids for {n_docs} documents")
+            out["boot1_vectors"] = sum(c["live_vectors"] for c in stats["categories"].values())
+            log(f"server boot 1: listening in {out['boot1_listen_s']:.2f} s; {n_docs} documents "
+                f"in {n_docs // SERVER_UPLOAD} uploads of {SERVER_UPLOAD} from 4 clients in "
+                f"{out['upload_s']:.1f} s ({out['upload_docs_per_s']:.0f} documents/s, host "
+                f"clock), {out['boot1_vectors']} vectors; {smi}")
+
+            # ---- boot 2: the startup rebuild, then the searches
+            with serving(entry, cfg, ai, port) as out["boot2_listen_s"]:
+                c = Client(port)
+                t0 = time.perf_counter()
+                while True:
+                    _, _, stats = c.call("GET", "/api/stats")
+                    (cat,) = stats["categories"].values()
+                    if stats["build"] is None and cat["clusters"] > 1:
+                        break
+                    if time.perf_counter() - t0 > 600:
+                        raise AssertionError(f"no rebuild within 600 s: {stats}")
+                    time.sleep(0.1)
+                out["rebuild_s"] = time.perf_counter() - t0
+                out["clusters"], out["cap"] = cat["clusters"], cat["bucket_capacity"]
+                out["device"] = str(engines[-1].device)
+                if engines[-1].device.type != dev.type:
+                    failures.append(f"the engine serves on {engines[-1].device}, not {dev.type}")
+                log(f"server boot 2: listening in {out['boot2_listen_s']:.2f} s (snapshot "
+                    f"restore), startup rebuild done {out['rebuild_s']:.2f} s later: "
+                    f"{cat['live_vectors']} vectors in {out['clusters']} clusters, cap "
+                    f"{out['cap']}, engine on {out['device']}; {smi}")
+
+                rng = np.random.default_rng(17)
+                sample = rng.choice(n_docs, n_sample, replace=False)
+
+                # 1. every sampled document finds itself first
+                def self_search(n, centroids):
+                    def job(c):
+                        top = search(c, n, centroids)[0]
+                        return top["name"] == f"d{n}" and top["document_id"] == ids[n]
+                    return job
+
+                for centroids in (8, -1):
+                    got, _ = fan_out(port, SERVER_CLIENTS,
+                                     [self_search(int(n), centroids) for n in sample])
+                    out[f"self_top1_c{centroids}"] = float(np.mean(got))
+                    if not all(got):
+                        failures.append(f"{got.count(False)} of {n_sample} sampled documents "
+                                        f"not first at centroids={centroids}")
+                log(f"server self-search: {n_sample} sampled documents first at centroids 8 / "
+                    f"-1: {out['self_top1_c8']:.4f} / {out['self_top1_c-1']:.4f}")
+
+                # 2-3. single searches, from one client, then from 16 at once
+                def timed_search(n, centroids):
+                    def job(c):
+                        t = time.perf_counter()
+                        top = search(c, n, centroids)[0]
+                        return time.perf_counter() - t, top["document_id"] == ids[n]
+                    return job
+
+                queries = [int(n) for n in sample[:SERVER_SINGLE]]
+                for centroids in SERVER_NPROBES:
+                    for clients, per in ((1, SERVER_SINGLE), (SERVER_CLIENTS, per_client)):
+                        jobs = [timed_search(queries[i % len(queries)], centroids)
+                                for i in range(clients * per)]
+                        before = c.call("GET", "/api/stats")[2]["batcher"]["dispatches"]
+                        got, wall = fan_out(port, clients, jobs)
+                        after = c.call("GET", "/api/stats")[2]["batcher"]["dispatches"]
+                        ms = np.array([t for t, _ in got]) * 1e3
+                        key = f"c{centroids}_x{clients}"
+                        out[key] = {"requests": len(jobs), "p50_ms": float(np.percentile(ms, 50)),
+                                    "p99_ms": float(np.percentile(ms, 99)),
+                                    "req_per_s": len(jobs) / wall,
+                                    "dispatches": after - before,
+                                    "self_top1": float(np.mean([ok for _, ok in got]))}
+                        r = out[key]
+                        log(f"server search centroids={centroids}, {clients} client(s), "
+                            f"{r['requests']} requests: p50 {r['p50_ms']:.3f} ms, p99 "
+                            f"{r['p99_ms']:.3f} ms, {r['req_per_s']:.0f} requests/s, "
+                            f"{r['requests'] / max(r['dispatches'], 1):.2f} requests per "
+                            f"device dispatch, self top-1 {r['self_top1']:.4f} (host clock, "
+                            f"HTTP end to end; {smi})")
+                        if centroids != 1 and r["self_top1"] < 1.0:
+                            failures.append(f"{key}: self top-1 {r['self_top1']}")
+
+                # 4. batched texts searches
+                batches = [sample[i : i + SERVER_BATCH_Q]
+                           for i in range(0, n_sample - SERVER_BATCH_Q + 1, SERVER_BATCH_Q)]
+                t0 = time.perf_counter()
+                hits = []
+                for _ in range(SERVER_BATCH_ROUNDS):
+                    for b in batches:
+                        res = c.post("/api/search", {
+                            "owner": "o", "category": "c", "count": 10, "centroids": 8,
+                            "texts": [f"document {n}" for n in b]})["results"]
+                        hits += [r["documents"][0]["document_id"] == ids[int(n)]
+                                 for n, r in zip(b, res)]
+                wall = time.perf_counter() - t0
+                out["batch_queries_per_s"] = len(hits) / wall
+                if not all(hits):
+                    failures.append(f"batched texts: {hits.count(False)} queries not first")
+                log(f"server batched texts: {len(hits)} queries in requests of "
+                    f"{SERVER_BATCH_Q} at centroids=8: {out['batch_queries_per_s']:.0f} "
+                    f"queries/s (host clock; {smi})")
+
+                # 5. deletes; none may come back
+                victims = [int(n) for n in sample[:SERVER_DELETE]]
+                gone = {ids[n] for n in victims}
+                for n in victims:
+                    if c.post("/api/delete/document", {"owner": "o", "category": "c",
+                                                       "document_id": ids[n]}) != {}:
+                        failures.append(f"delete of document {ids[n]} did not answer {{}}")
+                back = [d["document_id"] for n in victims for cc in (8, -1)
+                        for d in search(c, n, cc)]
+                back += [d["document_id"] for r in c.post("/api/search", {
+                    "owner": "o", "category": "c", "count": 10, "centroids": 8,
+                    "texts": [f"document {n}" for n in victims]})["results"]
+                    for d in r["documents"]]
+                out["deleted_returned"] = len(gone.intersection(back))
+                if out["deleted_returned"]:
+                    failures.append(f"{out['deleted_returned']} deleted documents came back")
+
+                # 6-7. chat stream; stats name the card
+                status, headers, body = c.call("POST", "/api/chat", {
+                    "text": "summarize", "document_ids": [ids[int(sample[-1])]]})
+                if (status, headers.get("Transfer-Encoding"), body) != (
+                        200, "chunked", CHAT_REPLY.encode()):
+                    failures.append(f"chat: {status} {headers} {body[:80]!r}")
+                _, _, stats = c.call("GET", "/api/stats")
+                out["devices"] = stats["devices"]
+                (cat,) = stats["categories"].values()
+                if [d["name"] for d in stats["devices"]] != [
+                        torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]:
+                    failures.append(f"/api/stats devices: {stats['devices']}")
+                if cat["live_vectors"] != n_docs - SERVER_DELETE:
+                    failures.append(f"live vectors {cat['live_vectors']} after the deletes")
+                log(f"server: {SERVER_DELETE} deleted, {out['deleted_returned']} came back; "
+                    f"chat streamed; /api/stats devices {[d['name'] for d in stats['devices']]}")
+
+            # ---- the entry as users start it
+            out["entry"] = entry_check(tmp, failures)
+    finally:
+        entry.Engine = RecordedEngine.__mro__[1]
+    out["failures"] = failures
+    return out
+
+
+def entry_check(tmp, failures) -> dict:
+    """`python -m vectorsearch_tpu_torch config.json` with the noop
+    embedder: boot, one upload and one search, exit 0 on SIGTERM."""
+    port = free_port()
+    path = os.path.join(tmp, "entry.json")
+    with open(path, "w") as f:
+        json.dump({"server": {"http_address": f"127.0.0.1:{port}",
+                              "https_address": f"127.0.0.1:{free_port()}"},
+                   "database": {"sqlite": os.path.join(tmp, "entry.db"),
+                                "snapshots": os.path.join(tmp, "entry_snaps")},
+                   "log_level": "info"}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, VSTPU_NOOP_AI="1", PYTHONPATH=root)
+    out = {}
+    with open(os.path.join(tmp, "entry.log"), "w+b") as log_file:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "vectorsearch_tpu_torch", path],
+                                cwd=root, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            wait_listening(port, lambda: proc.poll() is None, 300)
+            out["listen_s"] = time.perf_counter() - t0
+            c = Client(port)
+            up = c.post("/api/upload", {"owner": "o", "category": "c", "documents": [
+                {"name": "entry", "document": {"text": "entry check"}}]})["document_ids"]
+            got = c.post("/api/search", {"owner": "o", "category": "c", "text": "entry check",
+                                         "count": 1, "centroids": -1})["documents"]
+            out["answered"] = [d["document_id"] for d in got] == up
+            c.conn.close()
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            out["rc"] = proc.wait(timeout=30)
+            out["exit_s"] = time.perf_counter() - t1
+        except Exception as e:
+            failures.append(f"entry check: {e!r}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log_file.seek(0)
+        text = log_file.read().decode(errors="replace")
+    out["device_line"] = next((ln.split("\t")[-1] for ln in text.splitlines()
+                               if "\tdevice " in ln), None)
+    if not (out.get("answered") and out.get("rc") == 0):
+        failures.append(f"entry check: {out}; its log ends:\n{text[-3000:]}")
+    log(f"entry: python -m vectorsearch_tpu_torch listening in {out.get('listen_s', -1):.1f} s "
+        f"({out['device_line']}), answered {out.get('answered')}, exit {out.get('rc')} "
+        f"{out.get('exit_s', -1):.2f} s after SIGTERM")
+    return out
+
+
 def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     """bench_build.py's build: clustered packed rows from k generating
     centers, made on the card, moved to host numpy once, then
@@ -675,6 +1082,7 @@ def main() -> int:
     idx = run("index", lambda: phase_index(torch, dev))
     flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
     eng = run("engine", lambda: phase_engine(torch, dev))
+    srv = run("server", lambda: phase_server(torch, dev, smi))
     torch.cuda.empty_cache()
     b10 = run("build10m", lambda: phase_build10m(torch, dev))
 
@@ -701,6 +1109,7 @@ def main() -> int:
             and min(eng["hits"]) > 0 and eng["reboot_hits"] > 0
             and eng["reboot_live"] == eng["live"] - eng["deleted_vectors"]):
         failures.append(f"engine phase: {eng}")
+    failures += [f"server phase: {f}" for f in srv["failures"]]
     if not (b10["finite"] and b10["assigned"] == b10["n"] and b10["iterations"] >= 1
             and 1 < b10["k"] <= 2 * b10["k_asked"]):
         failures.append(f"10M build: {b10}")

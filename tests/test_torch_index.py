@@ -195,3 +195,37 @@ def test_search_retries_on_out_of_memory(monkeypatch):
     got = pt.search(q, k=5, nprobe=40, refine=16)
     assert calls[:3] == [(8, "blockexact"), (8, "flat"), (4, "flat")]
     assert_hits_match(got, want)
+
+
+def test_search_remembers_what_worked_after_out_of_memory(monkeypatch):
+    """After a recovered out-of-memory dispatch, the next search on the
+    same index starts at the epilogue and batch that worked (no failing
+    dispatch); a write returns a new index, which starts afresh."""
+    from vectorsearch_tpu_torch.index import ivf as port_ivf
+
+    _, pt, v = pair(n_per=40, k=48)
+    q = v[::50][:8] + 0.01
+    want = pt.search(q, k=5, nprobe=40, refine=16)
+    real = port_ivf._scan_refined
+    calls = []
+
+    def flaky(queries, *args, epilogue=None, **kw):
+        calls.append((queries.shape[0], epilogue))
+        if epilogue == "blockexact" or queries.shape[0] > 4:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+        return real(queries, *args, epilogue=epilogue, **kw)
+
+    monkeypatch.setattr(port_ivf, "_scan_refined", flaky)
+    monkeypatch.setenv("VSTPU_EPILOGUE", "blockexact")
+    first = pt.search(q, k=5, nprobe=40, refine=16)
+    assert calls[:3] == [(8, "blockexact"), (8, "flat"), (4, "flat")]
+    calls.clear()
+    second = pt.search(q, k=5, nprobe=40, refine=16)
+    assert calls == [(4, "flat"), (4, "flat")]
+    assert_hits_match(second, first)
+    assert_hits_match(second, want)
+
+    calls.clear()
+    grown = pt.insert(layout.pack_float(v[:2] + 0.5), np.array([10**6, 10**6 + 1]))
+    grown.search(q, k=5, nprobe=40, refine=16)
+    assert calls[0] == (8, "blockexact")

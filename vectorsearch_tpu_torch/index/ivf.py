@@ -25,7 +25,7 @@ reuse, one-sync bundling) and string-matched OOM detection.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -172,6 +172,11 @@ class IVFIndex:
     # second copy of the codes must fit the budget): inserts go to the
     # spill tail, tombstones still work, the next rebuild re-packs
     frozen: bool = False
+    # nprobe -> (epilogue, b_max) of the last dispatch that succeeded after
+    # an out-of-memory retry: later searches on this instance start there
+    # instead of paying the failed dispatch again. Writes return new
+    # instances, which start afresh.
+    _oom_memo: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def k_clusters(self) -> int:
@@ -375,6 +380,10 @@ class IVFIndex:
         # buffers are exactly the marginal allocation); then halve the
         # batch, at most 3 times, so a real fault still surfaces.
         cur_epi = epilogue
+        memo = self._oom_memo.get(nprobe)
+        if memo is not None:
+            cur_epi, b_max = memo[0], min(b_max, memo[1])
+        retried = False
         for attempt in range(4):
             try:
                 scores, gslot = dispatch(b_max, cur_epi)
@@ -398,6 +407,9 @@ class IVFIndex:
                     else f"halved chunk b_max={b_max}",
                 )
                 torch.cuda.empty_cache()
+                retried = True
+        if retried:
+            self._oom_memo[nprobe] = (cur_epi, b_max)
         flat_ids = self.ids.reshape(-1)
         safe = np.clip(gslot, 0, flat_ids.size - 1)
         out_ids = np.where(np.isneginf(scores), -1, flat_ids[safe])
