@@ -14,7 +14,10 @@ Phases (any failure exits non-zero before the last line is printed):
         (1M x 768 clustered packed rows at K=1024 and 4096, and the
         superset phase's 196,608 rows at K=16,384): cid equal except at
         near-ties, counts equal, sums within tolerance, and two accumulate
-        launches bit-identical;
+        launches bit-identical; beside assign, one torch.matmul of the bf16
+        codes by cn_bf16^T (the product alone) as the library yardstick;
+        then assign alone at N=1M over K=256..4096 and at N=196,608 over
+        K=2048..16,384, with the line t = a + b K through each N's times;
      c. the s8 and bf16 flat band kernels on 1M x 768 clustered packed
         rows with tombstones, B=512, at N=1M and at N=1M-300 (a partial
         last tile): s8 band maxima bit-equal, bf16 within 1e-4 with the
@@ -37,7 +40,9 @@ Phases (any failure exits non-zero before the last line is printed):
      first number names a document; its vector is bench.py's recipe).
      Boot 1 takes 200,000 documents in 200 uploads of 1,000 and stops
      (the engine writes its snapshot); boot 2 restores it, rebuilds at
-     startup (both k-means kernels), and over HTTP: 1,000 sampled
+     startup (both k-means kernels) while one client searches, one request
+     at a time (each must answer; the slowest is the wait a search sees
+     while the rebuild rewrites the store), and then over HTTP: 1,000 sampled
      documents each find themselves first at centroids 8 and -1; single
      searches at centroids 1 and 8 from one client and from 16 at once
      (p50/p99 ms, requests/s); batched texts searches of 256 (queries/s);
@@ -49,16 +54,22 @@ Phases (any failure exits non-zero before the last line is printed):
      packed rows from 4096 generating centers (made on the card from a
      fixed seed, moved to host numpy once) -> build_centroids with k=4096
      and bench_build.py's arguments: build seconds, iterations, final
-     churn, cluster sizes and peak device memory;
-  9. the kernels line, the card line, and the contract line.
+     churn, cluster sizes and peak device memory; then, outside the phase's
+     launch counts, the same build under torch.profiler, its device time
+     summed by kernel;
+  9. the kernels line, the card line, and the contract line. Each kernel's
+     entry has its bound (the larger of its bytes over 3.35 TB/s and its
+     operations over the peak of their type, from this run's shapes), its
+     share of that bound, and the time of one PyTorch call that computes
+     the same function where one does (assign: the bf16 product alone).
 
 Every kernel launch count is set to 0 just before each of phases 4-8 and
 read just after: phases 4, 6 and 7 must launch the grouped scan and both
 k-means kernels, phase 5 both flat band kernels, phase 8 both k-means
 kernels. The script imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
-through vectorsearch_tpu_torch.host), and checks at the end that jax was
-never imported.
+through vectorsearch_tpu_torch.host), and checks at the end that neither
+jax nor anything of the JAX package vectorsearch_tpu was imported.
 """
 from __future__ import annotations
 
@@ -94,7 +105,14 @@ KERNEL_ATOL = 1e-4  # f32 sums in another order over exact products
 KMEANS_SHAPES = ((1_000_000, 1024, 65_536), (1_000_000, 4096, 65_536),
                  (196_608, 16_384, 8_192))
 KMEANS_MAIN = (1_000_000, 4096)
+# assign timed at a fixed N over K: a line t = a + b K through the times
+# splits a cost per row tile (its codes' load, the store) from a cost per
+# centroid (every 128-row block reads all of cn from L2)
+ASSIGN_SWEEP = ((1_000_000, (256, 512, 1024, 2048, 4096)),
+                (196_608, (2048, 4096, 8192, 16_384)))
 TIE_ATOL = 1e-5  # a cid may differ only where the plain sims lie this close
+# the chunk of the library yardstick of assign (one bf16 matmul a chunk)
+LIBRARY_CHUNK = 65_536
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-4  # f32 sums of the same values in another order
 # bench_build.py's configuration (BASELINE config 4)
 BUILD_N, BUILD_K = 10_000_000, 4096
@@ -113,6 +131,13 @@ SERVER_NPROBES = (1, 8)
 SERVER_BATCH_Q, SERVER_BATCH_ROUNDS = 256, 5
 SERVER_DELETE = 100
 CHAT_REPLY = "chat reply"
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# the least time a kernel could take is the larger of its bytes over the
+# memory rate and its operations over the peak rate of their type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
@@ -173,6 +198,17 @@ def packed_on_card(torch, dev, n, dim, k, seed, step=500_000):
         yield start, layout.PackedVectors(codes, scale, offset, inv_norm)
 
 
+def bound(bytes_moved, ops, peak_ops) -> dict:
+    """The least time the card could take: bytes (each input read once,
+    each output written once) over the memory rate, or operations over the
+    peak rate of their type, whichever is larger."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / peak_ops * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
 def median_ms(torch, fn, runs=20):
     """Median CUDA-event time of fn() over `runs` launches, after a warm-up."""
     fn()
@@ -207,12 +243,28 @@ def phase_env(torch) -> str:
 
 
 def phase_build() -> float:
+    """The kernel library, built as the wrappers build it; beside it, one
+    more compile of csrc/kmeans.cu with `-Xptxas -v` for ptxas's report of
+    the assign kernel (registers, shared memory, spills)."""
     from vectorsearch_tpu_torch.kernels import _build
 
-    t0 = time.perf_counter()
-    path = _build.load()._name
-    secs = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="vs_ptxas_") as tmp, subprocess.Popen(
+        [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-c",
+         os.path.join(_build._CSRC, "kmeans.cu"), "-o", os.path.join(tmp, "kmeans.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) as ptxas:
+        t0 = time.perf_counter()
+        path = _build.load()._name
+        secs = time.perf_counter() - t0
+        report = ptxas.communicate()[0]
     log(f"build: {os.path.relpath(path)} in {secs:.2f} s")
+    if ptxas.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v kmeans.cu failed:\n{report}")
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and "kmeans_assign" in line:
+            log("ptxas kmeans_assign: " + " | ".join(
+                ln.strip() for ln in lines[i : i + 3]))
     return secs
 
 
@@ -255,14 +307,22 @@ def phase_kernel(torch, dev, smi: str) -> dict:
         ms = median_ms(torch, lambda: gs.grouped_scores(*args, True))
         plain_ms = median_ms(torch, lambda: gs.grouped_scores_ref(*args, True))
         g = int(gcl.numel())
+        # this run's data: the codes and sidecars of the probed clusters
+        # read once, the group queries read, the scores and maxima written;
+        # b * nprobe (query, cluster) pairs of cap x d bf16 products
+        probed_k = int(torch.unique(gcl).numel())
+        moved = (probed_k * cap * (d + 12) + g * qt * (2 * d + 4) + 4 * g
+                 + out.numel() * 4 + bmax.numel() * 4)
+        bnd = bound(moved, 2 * b * nprobe * cap * d, PEAK_BF16_FLOPS)
         by_nprobe[nprobe] = {
             "G": g, "QT": qt, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "code_GB_per_s": g * cap * d / ms / 1e6,
+            "code_GB_per_s": g * cap * d / ms / 1e6, **bnd, "share": bnd["bound_ms"] / ms,
         }
         worst = max(worst, err)
         log(f"kernel nprobe={nprobe}: G={g} QT={qt} max_abs_err={err:.3g} "
-            f"bmax exact; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms "
-            f"(median of 20, {smi})")
+            f"bmax exact; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
+            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), share "
+            f"{bnd['bound_ms'] / ms:.3f} (median of 20, {smi})")
     del codes, a, bv, bias
     torch.cuda.empty_cache()
     main = by_nprobe[8]
@@ -274,6 +334,10 @@ def phase_kernel(torch, dev, smi: str) -> dict:
         "max_abs_err": worst,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "share": main["share"],
+        "library_ms": None,  # no one PyTorch call computes this function
         "ms_at": "nprobe=8, B=512, K=995, cap=3072, D=768",
         "by_nprobe": by_nprobe,
     }
@@ -334,16 +398,40 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
             "accumulate_plain_ms": median_ms(
                 torch, lambda: km.accumulate_ref(rows, cid, kk, chunk), plain_runs),
         }
+        # assign: 2 N K D bf16 flops; the codes, sidecars and centroids read
+        # once, cid written. accumulate: the codes, scale, offset and cid
+        # read once, sums and counts written (f32 adds on the CUDA cores)
+        r["assign_bound"] = bound(n * DIM + 16 * n + kk * (2 * DIM + 4),
+                                  2 * n * kk * DIM, PEAK_BF16_FLOPS)
+        r["accumulate_bound"] = bound(n * DIM + 12 * n + kk * (4 * DIM + 4),
+                                      2 * n * DIM, PEAK_F32_FLOPS)
+        r["assign_share"] = r["assign_bound"]["bound_ms"] / r["assign_ms"]
+        r["accumulate_share"] = r["accumulate_bound"]["bound_ms"] / r["accumulate_ms"]
+        # the library yardstick, product only (no sidecars, no argmax): one
+        # torch.matmul of the bf16 codes, widened outside the timing, by
+        # cn_bf16^T per LIBRARY_CHUNK rows
+        codes_bf16 = rows.codes.to(torch.bfloat16)
+        r["assign_library_ms"] = median_ms(torch, lambda: [
+            codes_bf16[lo : lo + LIBRARY_CHUNK] @ cn_bf16.T
+            for lo in range(0, n, LIBRARY_CHUNK)], plain_runs)
+        del codes_bf16
         by_shape[f"{n}x{kk}"] = r
         worst_gap = max(worst_gap, gap)
         worst_sum = max(worst_sum, r["max_abs_sum_err"])
         log(f"kmeans kernels N={n} D={DIM} K={kk}: assign {r['assign_ms']:.3f} ms vs plain "
-            f"{r['assign_plain_ms']:.3f} ms, {r['cid_moved']} cids differ (widest sim gap "
+            f"{r['assign_plain_ms']:.3f} ms, bound {r['assign_bound']['bound_ms']:.3f} ms "
+            f"({r['assign_bound']['bound_by']}), share {r['assign_share']:.3f}, library "
+            f"{r['assign_library_ms']:.3f} ms (torch.matmul of bf16 codes by cn_bf16^T in "
+            f"{LIBRARY_CHUNK}-row chunks: product only, no sidecars or argmax), "
+            f"{r['cid_moved']} cids differ (widest sim gap "
             f"{gap:.3g}); accumulate {r['accumulate_ms']:.3f} ms vs plain "
-            f"{r['accumulate_plain_ms']:.3f} ms, counts equal, max |sum err| "
+            f"{r['accumulate_plain_ms']:.3f} ms, bound {r['accumulate_bound']['bound_ms']:.3f} "
+            f"ms ({r['accumulate_bound']['bound_by']}), share {r['accumulate_share']:.3f}, "
+            f"counts equal, max |sum err| "
             f"{r['max_abs_sum_err']:.3g}, bit-identical relaunch (median of 20 / "
             f"{plain_runs}, {smi})")
         del sums, ref_sums, again, err, want, cid
+    sweep = assign_sweep(torch, dev, full, smi)
     del full
     torch.cuda.empty_cache()
     main = by_shape[f"{KMEANS_MAIN[0]}x{KMEANS_MAIN[1]}"]
@@ -353,18 +441,60 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
         {"name": "kmeans_assign", "route": "cuda", "source": src,
          "replaces": "vectorsearch_tpu/kernels/pallas_kmeans.py:58",
          "max_abs_err": worst_gap, "ms": main["assign_ms"],
-         "plain_ms": main["assign_plain_ms"], "ms_at": at,
+         "plain_ms": main["assign_plain_ms"], **main["assign_bound"],
+         "share": main["assign_share"], "library_ms": main["assign_library_ms"],
+         "library_call": "torch.matmul of bf16 codes by cn_bf16^T, product only",
+         "ms_at": at,
          "by_shape": {k: {f: v[f] for f in ("cid_moved", "max_tie_gap", "assign_ms",
-                                              "assign_plain_ms")}
-                      for k, v in by_shape.items()}},
+                                              "assign_plain_ms", "assign_bound",
+                                              "assign_share", "assign_library_ms")}
+                      for k, v in by_shape.items()},
+         "k_sweep": sweep},
         {"name": "kmeans_accumulate", "route": "cuda", "source": src,
          "replaces": "vectorsearch_tpu/kernels/pallas_kmeans.py:100",
          "max_abs_err": worst_sum, "ms": main["accumulate_ms"],
-         "plain_ms": main["accumulate_plain_ms"], "ms_at": at + " (with the sort glue)",
+         "plain_ms": main["accumulate_plain_ms"], **main["accumulate_bound"],
+         "share": main["accumulate_share"],
+         "library_ms": None,  # no one PyTorch call computes this function
+         "ms_at": at + " (with the sort glue)",
          "by_shape": {k: {f: v[f] for f in ("max_abs_sum_err", "accumulate_ms",
-                                              "accumulate_plain_ms")}
+                                              "accumulate_plain_ms", "accumulate_bound",
+                                              "accumulate_share")}
                       for k, v in by_shape.items()}},
     ]
+
+
+def assign_sweep(torch, dev, full, smi: str) -> dict:
+    """assign's time at each ASSIGN_SWEEP shape, with its bf16 rate and the
+    rate at which its blocks read cn (ceil(N / 128) blocks, each reading all
+    K x D bf16 of it), and per N the least-squares line t = a + b K."""
+    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.kernels import kmeans as km
+
+    out = {}
+    for n, ks in ASSIGN_SWEEP:
+        rows = layout.PackedVectors(*[a[:n] for a in full])
+        times = []
+        for kk in ks:
+            gen = torch.Generator(device=dev).manual_seed(kk)
+            pick = torch.randperm(n, generator=gen, device=dev)[:kk]
+            cents = rows.offset[pick, None] + rows.scale[pick, None] * rows.codes[pick].float()
+            _, csum, cn_bf16 = km._normalize(cents)
+            cn_bf16 = cn_bf16.contiguous()
+            ms = median_ms(torch, lambda: km.assign(rows, cn_bf16, csum))
+            times.append(ms)
+            out[f"{n}x{kk}"] = {
+                "ms": ms, "TFLOP_per_s": 2 * n * kk * DIM / ms / 1e9,
+                "cn_read_TB_per_s": -(-n // 128) * kk * DIM * 2 / ms / 1e9,
+            }
+        b, a = np.polyfit(np.array(ks, float), np.array(times), 1)
+        out[f"{n}_line"] = {"a_ms": float(a), "b_us_per_centroid": float(b) * 1e3}
+        log(f"assign sweep N={n} D={DIM}: " + "; ".join(
+            f"K={kk} {out[f'{n}x{kk}']['ms']:.3f} ms "
+            f"({out[f'{n}x{kk}']['TFLOP_per_s']:.0f} TFLOP/s, cn read "
+            f"{out[f'{n}x{kk}']['cn_read_TB_per_s']:.2f} TB/s)" for kk in ks)
+            + f"; line t = {a:.4f} ms + {b * 1e3:.4f} us x K (median of 20, {smi})")
+    return out
 
 
 def phase_flat_kernels(torch, dev, smi: str) -> list:
@@ -417,9 +547,15 @@ def phase_flat_kernels(torch, dev, smi: str) -> list:
                 tiles = -(-n // tf.TILE_N)
                 moved = n * DIM + 12 * n + N_QUERIES * tiles * tf.BAND_LANES * 4
                 r["GB_per_s"] = moved / r["ms"] / 1e6
+                q_bytes = N_QUERIES * (DIM + 8 if name == "flat_bands_s8" else 2 * DIM + 4)
+                r.update(bound(moved + q_bytes, 2 * N_QUERIES * n * DIM,
+                               PEAK_INT8_OPS if name == "flat_bands_s8" else PEAK_BF16_FLOPS))
+                r["share"] = r["bound_ms"] / r["ms"]
                 log(f"{name} N={n} D={DIM} B={N_QUERIES}: kernel {r['ms']:.3f} ms vs plain "
                     f"{r['plain_ms']:.3f} ms (median of 20 / 5, {smi}), "
-                    f"{r['TOP_per_s']:.1f} TOP/s, {r['GB_per_s']:.1f} GB/s, max |err| {err:.3g}")
+                    f"{r['TOP_per_s']:.1f} TOP/s, {r['GB_per_s']:.1f} GB/s, bound "
+                    f"{r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}, "
+                    f"max |err| {err:.3g}")
             else:
                 log(f"{name} N={n}: max |kernel - plain| {err:.3g}, -inf pattern equal")
             res[name][n] = r
@@ -432,6 +568,8 @@ def phase_flat_kernels(torch, dev, smi: str) -> list:
          "replaces": f"vectorsearch_tpu/kernels/pallas_flat.py:{line}",
          "max_abs_err": max(r["max_abs_err"] for r in res[name].values()),
          "ms": res[name][FLAT_SHAPES[0]]["ms"], "plain_ms": res[name][FLAT_SHAPES[0]]["plain_ms"],
+         **{f: res[name][FLAT_SHAPES[0]][f] for f in ("bound_ms", "bound_by", "share")},
+         "library_ms": None,  # no one PyTorch call computes this function
          "ms_at": at, "by_n": res[name]}
         for name, line in (("flat_bands_s8", 85), ("flat_bands_bf16", 54))
     ]
@@ -822,6 +960,7 @@ def phase_server(torch, dev, smi, n_docs=SERVER_DOCS, n_sample=SERVER_SAMPLE,
             with serving(entry, cfg, ai, port) as out["boot2_listen_s"]:
                 c = Client(port)
                 t0 = time.perf_counter()
+                during = []  # ms of each search while the startup rebuild runs
                 while True:
                     _, _, stats = c.call("GET", "/api/stats")
                     (cat,) = stats["categories"].values()
@@ -829,8 +968,16 @@ def phase_server(torch, dev, smi, n_docs=SERVER_DOCS, n_sample=SERVER_SAMPLE,
                         break
                     if time.perf_counter() - t0 > 600:
                         raise AssertionError(f"no rebuild within 600 s: {stats}")
-                    time.sleep(0.1)
+                    t = time.perf_counter()
+                    if not search(c, len(during) % n_docs, 8):
+                        failures.append("a search during the startup rebuild found nothing")
+                    during.append((time.perf_counter() - t) * 1e3)
                 out["rebuild_s"] = time.perf_counter() - t0
+                out["during_rebuild"] = {
+                    "searches": len(during),
+                    "max_ms": max(during, default=None),
+                    "p50_ms": float(np.median(during)) if during else None,
+                }
                 out["clusters"], out["cap"] = cat["clusters"], cat["bucket_capacity"]
                 out["device"] = str(engines[-1].device)
                 if engines[-1].device.type != dev.type:
@@ -839,6 +986,8 @@ def phase_server(torch, dev, smi, n_docs=SERVER_DOCS, n_sample=SERVER_SAMPLE,
                     f"restore), startup rebuild done {out['rebuild_s']:.2f} s later: "
                     f"{cat['live_vectors']} vectors in {out['clusters']} clusters, cap "
                     f"{out['cap']}, engine on {out['device']}; {smi}")
+                log(f"server searches during the startup rebuild: "
+                    f"{out['during_rebuild']} (host clock)")
 
                 rng = np.random.default_rng(17)
                 sample = rng.choice(n_docs, n_sample, replace=False)
@@ -1008,7 +1157,8 @@ def entry_check(tmp, failures) -> dict:
 def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     """bench_build.py's build: clustered packed rows from k generating
     centers, made on the card, moved to host numpy once, then
-    build_centroids with bench_build.py's arguments."""
+    build_centroids with bench_build.py's arguments. The rows are returned
+    under "rows" for profile_build."""
     from vectorsearch_tpu_torch.build import build_centroids
     from vectorsearch_tpu_torch.host import layout
 
@@ -1044,7 +1194,38 @@ def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
         f"{out['iterations']} iters, final churn {out['final_churn']}, max/mean cluster "
         f"{out['max_cluster']}/{out['mean_cluster']:.1f}, peak device memory "
         f"{out['peak_device_GiB']:.2f} GiB")
+    out["rows"] = host
     return out
+
+
+def profile_build(torch, host, dev, k=BUILD_K, top=10) -> dict:
+    """phase_build10m's build once more under torch.profiler: device time summed
+    by kernel name (CUDA rows only), its total, and the profiled wall (the
+    profiler slows the host, so build seconds come from the unprofiled
+    build)."""
+    from torch.autograd import DeviceType
+
+    from vectorsearch_tpu_torch.build import build_centroids
+
+    n = host.codes.shape[0]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        build_centroids(
+            host, k=k, min_cluster_size=max(1, (n // k) // 10), max_iters=8,
+            superset_iters=3, chunk=65_536, balance_rounds=1, device=dev,
+        )
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    sums = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            sums[e.key] = sums.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    total = sum(sums.values())
+    by_name = dict(sorted(sums.items(), key=lambda kv: -kv[1])[:top])
+    log(f"build10m profile: device {total:.1f} ms in a {wall_s:.1f} s profiled build; by "
+        f"kernel (ms): " + "; ".join(f"{name[:70]} {ms:.1f}" for name, ms in by_name.items()))
+    return {"device_ms": total, "profiled_wall_s": wall_s, "kernel_ms": by_name}
 
 
 def main() -> int:
@@ -1085,6 +1266,8 @@ def main() -> int:
     srv = run("server", lambda: phase_server(torch, dev, smi))
     torch.cuda.empty_cache()
     b10 = run("build10m", lambda: phase_build10m(torch, dev))
+    # outside run(): its launches are not the main path's
+    b10["profile"] = profile_build(torch, b10.pop("rows"), dev)
 
     failures = []
     for nprobe, r in idx["recall"].items():
@@ -1115,6 +1298,10 @@ def main() -> int:
         failures.append(f"10M build: {b10}")
     if "jax" in sys.modules:
         failures.append("jax was imported")
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "vectorsearch_tpu" or m.startswith("vectorsearch_tpu."))
+    if jax_pkg:
+        failures.append(f"the JAX package was imported: {jax_pkg}")
     if failures:
         for f in failures:
             print("FAIL: " + f, file=sys.stderr)

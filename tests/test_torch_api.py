@@ -28,6 +28,8 @@ from vectorsearch_tpu import constants
 from vectorsearch_tpu.engine import Engine as JaxEngine
 from vectorsearch_tpu.engine import EngineCache as JaxEngineCache
 from vectorsearch_tpu.store import Store
+from vectorsearch_tpu_torch import constants as port_constants
+from vectorsearch_tpu_torch.host import Store as PortStore
 from vectorsearch_tpu.store.db import compress, decompress
 from vectorsearch_tpu_torch.api import http as port_http
 from vectorsearch_tpu_torch.engine import Engine, EngineCache
@@ -44,14 +46,15 @@ COMPARED_HEADERS = (
 @pytest.fixture(autouse=True)
 def small_buckets(monkeypatch):
     monkeypatch.setattr(constants, "BUCKET_ROUND", 64)
+    monkeypatch.setattr(port_constants, "BUCKET_ROUND", 64)
     torch.set_num_threads(2)
 
 
 def make_engine(kind):
-    store = Store(":memory:")
     if kind == "jax":
-        return JaxEngine(store, WordHashAI(), cache=JaxEngineCache(ttl=0.0))
-    return Engine(store, WordHashAI(), cache=EngineCache(ttl=0.0), device="cpu")
+        return JaxEngine(Store(":memory:"), WordHashAI(), cache=JaxEngineCache(ttl=0.0))
+    return Engine(PortStore(":memory:"), WordHashAI(), cache=EngineCache(ttl=0.0),
+                  device="cpu")
 
 
 @contextlib.contextmanager

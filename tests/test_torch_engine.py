@@ -14,16 +14,20 @@ from vectorsearch_tpu.embed.noop import NoopAI
 from vectorsearch_tpu.engine import Engine as JaxEngine
 from vectorsearch_tpu.quant import layout
 from vectorsearch_tpu.store import Store
+from vectorsearch_tpu_torch import constants as port_constants
 from vectorsearch_tpu_torch.engine import Engine
+from vectorsearch_tpu_torch.host import NoopAI as PortNoopAI
+from vectorsearch_tpu_torch.host import Store as PortStore
 
 ATOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
 def small_buckets(monkeypatch):
-    # both packages read BUCKET_ROUND at call time; 64 makes the
+    # each package reads its own BUCKET_ROUND at call time; 64 makes the
     # bootstrap index spill after 64 rows
     monkeypatch.setattr(constants, "BUCKET_ROUND", 64)
+    monkeypatch.setattr(port_constants, "BUCKET_ROUND", 64)
     torch.set_num_threads(2)
 
 
@@ -33,7 +37,7 @@ def engines():
 
     def make(store, seed, port):
         eng = (
-            Engine(store, NoopAI(seed=seed), device="cpu")
+            Engine(store, PortNoopAI(seed=seed), device="cpu")
             if port else JaxEngine(store, NoopAI(seed=seed))
         )
         made.append(eng)
@@ -61,7 +65,7 @@ def test_same_uploads_searches_and_deletes(engines):
     """Two stores, the same uploads: the bootstrap index (one centroid,
     bucket + spill tail) answers alike at centroids 1 and -1, and a
     delete removes the document from both."""
-    jx, pt = engines(Store(":memory:"), 0, False), engines(Store(":memory:"), 0, True)
+    jx, pt = engines(Store(":memory:"), 0, False), engines(PortStore(":memory:"), 0, True)
     for batch in (docs(50), docs(60, 50), docs(30, 110)):
         assert jx.upload("o", "c", batch) == pt.upload("o", "c", batch)
     assert pt._state_for(1).ivf.spill.live > 0
@@ -109,7 +113,7 @@ def test_port_rebuild_and_stats(engines):
     """The port's own rebuild (its k-means and bucket build) swaps in a
     multi-cluster index in which a stored vector finds itself first, and
     stats() and warmup() see it."""
-    pt = engines(Store(":memory:"), 0, True)
+    pt = engines(PortStore(":memory:"), 0, True)
     pt.upload("o", "c", docs(200))
     assert pt.refresh_centroids(target_cluster_size=50) == {1: True}
     ivf = pt._state_for(1).ivf

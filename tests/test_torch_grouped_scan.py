@@ -18,6 +18,7 @@ from vectorsearch_tpu import constants
 from vectorsearch_tpu.index import IVFIndex as JaxIVF
 from vectorsearch_tpu.kernels import pallas_scan
 from vectorsearch_tpu.quant import layout
+from vectorsearch_tpu_torch import constants as port_constants
 from vectorsearch_tpu_torch import convert
 from vectorsearch_tpu_torch.index import ivf as port_ivf
 from vectorsearch_tpu_torch.kernels import grouped_scan
@@ -28,6 +29,7 @@ ATOL = 2e-3
 @pytest.fixture(autouse=True)
 def small_buckets(monkeypatch):
     monkeypatch.setattr(constants, "BUCKET_ROUND", 64)
+    monkeypatch.setattr(port_constants, "BUCKET_ROUND", 64)
     torch.set_num_threads(2)
 
 

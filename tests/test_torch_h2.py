@@ -13,9 +13,9 @@ import threading
 import pytest
 import torch
 
-from vectorsearch_tpu.store import Store
 from vectorsearch_tpu_torch.api import h2 as h2mod
 from vectorsearch_tpu_torch.engine import Engine, EngineCache
+from vectorsearch_tpu_torch.host import Store
 
 from test_engine import WordHashAI
 
@@ -32,7 +32,7 @@ def _free_port():
 
 @pytest.fixture(scope="module")
 def h2_server():
-    from vectorsearch_tpu.config import TLSConfig
+    from vectorsearch_tpu_torch.config import TLSConfig
     from vectorsearch_tpu_torch.api import TLSManager, build_app
     from vectorsearch_tpu_torch.api.http import HTTPServer
 

@@ -1,6 +1,6 @@
-"""The port imports neither jax, aiohttp nor triton, builds nothing at
-import, and its kernel wrapper runs the plain version only for CPU
-tensors."""
+"""The port imports neither jax, aiohttp, triton nor anything of the JAX
+package, builds nothing at import, and its kernel wrapper runs the plain
+version only for CPU tensors."""
 import os
 import subprocess
 import sys
@@ -17,13 +17,18 @@ def test_port_imports_no_jax_and_builds_nothing():
     code = """
 import importlib, pkgutil, sys
 import vectorsearch_tpu_torch as pkg
-names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+# Python modules only: native/ builds its libvscodec.so beside itself
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if m.module_finder.find_spec(m.name).origin.endswith(".py")]
 for name in names:
     importlib.import_module(name)
 from vectorsearch_tpu_torch.kernels import _build
 assert _build._LIB is None, "a kernel was built at import"
 bad = [m for m in ("jax", "aiohttp", "triton") if m in sys.modules]
 assert not bad, bad
+jax_pkg = sorted(m for m in sys.modules
+                 if m == "vectorsearch_tpu" or m.startswith("vectorsearch_tpu."))
+assert not jax_pkg, jax_pkg
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -32,9 +37,10 @@ print(len(names))
         cwd=ROOT, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # api/ (4), utils/ (2) and __main__ joined the 21 modules of the search,
-    # build and engine slices
-    assert int(out.stdout.strip().splitlines()[-1]) >= 28
+    # the 28 modules of the search, build, engine and server slices, and
+    # the port's own copies of the host modules: config, constants,
+    # logger, utils.errors, quant/ (3), native, store/ (6), embed/ (7)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 49
 
 
 def test_package_pins_full_f32_products(monkeypatch):
@@ -55,13 +61,20 @@ def test_package_pins_full_f32_products(monkeypatch):
 
 def test_host_reexports_the_shared_modules():
     """chip_smoke.py and other callers reach the codec, store and noop
-    embedder through the port; they are the JAX package's own objects."""
+    embedder through the port's host module; they are the port's own
+    copies, not the JAX package's objects."""
     from vectorsearch_tpu.embed.noop import NoopAI
     from vectorsearch_tpu.quant import layout
     from vectorsearch_tpu.store import Store
     from vectorsearch_tpu_torch import host
+    from vectorsearch_tpu_torch.embed.noop import NoopAI as PortNoopAI
+    from vectorsearch_tpu_torch.quant import layout as port_layout
+    from vectorsearch_tpu_torch.store import Store as PortStore
 
-    assert (host.NoopAI, host.Store, host.layout) == (NoopAI, Store, layout)
+    assert (host.NoopAI, host.Store, host.layout) == (PortNoopAI, PortStore, port_layout)
+    for ours, theirs in ((host.NoopAI, NoopAI), (host.Store, Store), (host.layout, layout)):
+        assert ours is not theirs
+        assert getattr(ours, "__module__", ours.__name__).startswith("vectorsearch_tpu_torch.")
 
 
 def _args(device):

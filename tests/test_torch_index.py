@@ -13,6 +13,7 @@ from vectorsearch_tpu import constants
 from vectorsearch_tpu.index import FlatIndex as JaxFlat
 from vectorsearch_tpu.index import IVFIndex as JaxIVF
 from vectorsearch_tpu.quant import layout
+from vectorsearch_tpu_torch import constants as port_constants
 from vectorsearch_tpu_torch import convert
 from vectorsearch_tpu_torch.index import FlatIndex, IVFIndex
 from vectorsearch_tpu_torch.index.ivf import _oom_fallback
@@ -23,6 +24,7 @@ ATOL = 1e-5
 @pytest.fixture(autouse=True)
 def small_buckets(monkeypatch):
     monkeypatch.setattr(constants, "BUCKET_ROUND", 64)
+    monkeypatch.setattr(port_constants, "BUCKET_ROUND", 64)
     monkeypatch.setenv("VSTPU_EXACT_EPILOGUE", "1")
     torch.set_num_threads(2)
 

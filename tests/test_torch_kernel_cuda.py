@@ -25,12 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from vectorsearch_tpu.quant import layout
-from vectorsearch_tpu.quant.layout import PackedVectors
 from vectorsearch_tpu_torch.index import IVFIndex
 from vectorsearch_tpu_torch.kernels import _build, cosine, grouped_scan
 from vectorsearch_tpu_torch.kernels import flat as tf
 from vectorsearch_tpu_torch.kernels import kmeans as km
+from vectorsearch_tpu_torch.quant import layout
+from vectorsearch_tpu_torch.quant.layout import PackedVectors
 
 # the package exports a `kmeans` function that shadows the module name
 tk = importlib.import_module("vectorsearch_tpu_torch.build.kmeans")
@@ -217,6 +217,71 @@ def test_kmeans_kernels_match_plain(cuda, kk, n, d):
     assert (km.ASSIGN_LAUNCHES, km.ACCUMULATE_LAUNCHES) == (a0 + 1, c0 + 1)
     assert torch.equal(counts, ref_counts)
     torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=1e-4)
+
+
+def test_assign_exact_ties_take_the_lowest_k(cuda):
+    """Centroid 5 copied to 6 (the same K tile, another lane), 300 (the
+    next 256-centroid tile) and K - 1: equal sims, so every row whose
+    nearest is 5 must get 5, and no row gets a copy."""
+    n, d, kk = 20_000, 768, 1000
+    rows = _rows_on(cuda, n, d)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    pick = torch.randperm(n, generator=gen, device=cuda)[:kk]
+    cents = rows.offset[pick, None] + rows.scale[pick, None] * rows.codes[pick].float()
+    for copy in (6, 300, kk - 1):
+        cents[copy] = cents[5]
+    _, csum, cn_bf16 = km._normalize(cents)
+    cn_bf16, csum = cn_bf16.contiguous(), csum.contiguous()
+    cid = km.assign(rows, cn_bf16, csum)
+    want = km.assign_ref(rows, cn_bf16, csum, chunk=4096)
+    torch.cuda.synchronize()
+    assert int((want == 5).sum()) > 0
+    assert torch.equal(cid[want == 5], want[want == 5])
+    assert not bool(((cid == 6) | (cid == 300) | (cid == kk - 1)).any())
+    assert_near_ties_only(rows, cn_bf16, csum, cid, want)
+
+
+@pytest.mark.parametrize("d", [100, 768])
+@pytest.mark.parametrize("n,kk", [(129, 257), (4095, 511), (70_001, 300)])
+def test_assign_ragged_tiles(cuda, n, kk, d):
+    """N not a multiple of the 128-row tile, K not a multiple of the
+    256-centroid tile (and D not of 16 at d=100: the wrapper pads)."""
+    rows = _rows_on(cuda, n, d)
+    cn_bf16, csum = _centroids_on(cuda, kk, d, seed=n + kk)
+    cid = km.assign(rows, cn_bf16, csum)
+    want = km.assign_ref(rows, cn_bf16, csum, chunk=4096)
+    torch.cuda.synchronize()
+    assert bool(((cid >= 0) & (cid < kk)).all())
+    assert_near_ties_only(rows, cn_bf16, csum, cid, want)
+
+
+@pytest.mark.parametrize("d", [1024, 1280, 1296, 3072])
+def test_assign_wide_rows(cuda, d):
+    """Up to D = 1280 the 128-row code tile stays resident in shared
+    memory (fewer cn stages as D grows); from D = 1296 the codes stream
+    through the ring with each cn slice."""
+    rows = _rows_on(cuda, 3000, d)
+    cn_bf16, csum = _centroids_on(cuda, 600, d, seed=d)
+    cid = km.assign(rows, cn_bf16, csum)
+    want = km.assign_ref(rows, cn_bf16, csum, chunk=4096)
+    torch.cuda.synchronize()
+    assert_near_ties_only(rows, cn_bf16, csum, cid, want)
+
+
+def test_assign_1m_rows_4096_centroids(cuda):
+    """The main path's largest Lloyd pass at the 1M build: 1M x 768 rows
+    against 4096 centroids drawn from them."""
+    n, d, kk = 1_000_000, 768, 4096
+    rows = _rows_on(cuda, n, d)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    pick = torch.randperm(n, generator=gen, device=cuda)[:kk]
+    cents = rows.offset[pick, None] + rows.scale[pick, None] * rows.codes[pick].float()
+    _, csum, cn_bf16 = km._normalize(cents)
+    cn_bf16, csum = cn_bf16.contiguous(), csum.contiguous()
+    cid = km.assign(rows, cn_bf16, csum)
+    want = km.assign_ref(rows, cn_bf16, csum, chunk=65_536)
+    torch.cuda.synchronize()
+    assert_near_ties_only(rows, cn_bf16, csum, cid, want)
 
 
 def test_accumulate_is_deterministic(cuda):

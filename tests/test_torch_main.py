@@ -24,11 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from vectorsearch_tpu import config as config_mod
 from vectorsearch_tpu import constants
 from vectorsearch_tpu.engine import Engine as JaxEngine
 from vectorsearch_tpu.store import Store
 from vectorsearch_tpu_torch import __main__ as entry
+from vectorsearch_tpu_torch import config as config_mod
+from vectorsearch_tpu_torch import constants as port_constants
+from vectorsearch_tpu_torch.host import Store as PortStore
 from vectorsearch_tpu_torch.engine import Engine
 
 from test_engine import WordHashAI
@@ -176,6 +178,7 @@ QUERIES = ["w3 v2", "u4 w11", "v6 u1 w0", "item17 w4"]
 @pytest.fixture
 def small_buckets(monkeypatch):
     monkeypatch.setattr(constants, "BUCKET_ROUND", 64)
+    monkeypatch.setattr(port_constants, "BUCKET_ROUND", 64)
     torch.set_num_threads(2)
 
 
@@ -221,7 +224,7 @@ def test_jax_store_and_snapshots_boot_the_port_server(tmp_path, small_buckets, m
     restored = _spy_restores(monkeypatch, Engine)
     # the port's Engine on the JAX files: the same clustering, so the same
     # answers at a partial probe too
-    store = Store(str(tmp_path / "store.db"))
+    store = PortStore(str(tmp_path / "store.db"))
     pt = Engine(store, WordHashAI(), snapshot_dir=str(tmp_path / "snaps"), device="cpu")
     assert restored == [True]
     for c in (2, -1):
@@ -263,7 +266,7 @@ def test_jax_store_and_snapshots_boot_the_port_server(tmp_path, small_buckets, m
 
 
 def test_port_store_and_snapshots_boot_the_jax_engine(tmp_path, small_buckets, monkeypatch):
-    store = Store(str(tmp_path / "store.db"))
+    store = PortStore(str(tmp_path / "store.db"))
     pt = Engine(store, WordHashAI(), snapshot_dir=str(tmp_path / "snaps"), device="cpu")
     _write(pt)
     want = {c: _answers(pt, c) for c in (2, -1)}

@@ -5,7 +5,7 @@ import ssl
 import pytest
 
 from vectorsearch_tpu_torch.api import tls as tls_mod
-from vectorsearch_tpu.config import TLSConfig
+from vectorsearch_tpu_torch.config import TLSConfig
 
 cryptography = pytest.importorskip("cryptography")
 from cryptography import x509

@@ -33,7 +33,7 @@ def test_device_memory_stats_per_card(monkeypatch):
 
 
 def test_timed_logs_the_block(caplog):
-    from vectorsearch_tpu.logger import sugar
+    from vectorsearch_tpu_torch.logger import sugar
 
     logger = sugar()
     logger.propagate = True

@@ -24,17 +24,16 @@ import time
 import numpy as np
 import torch
 
-from vectorsearch_tpu import config as config_mod
-from vectorsearch_tpu.embed import AI
-from vectorsearch_tpu.logger import configure, sugar
-from vectorsearch_tpu.quant import codec, layout
-from vectorsearch_tpu.store import Store
-
+from . import config as config_mod
 from .api import TLSManager, build_app
 from .api.http import HTTPServer
 from .device import resolve, to_device
+from .embed import AI
 from .engine import Engine
 from .kernels import cosine
+from .logger import configure, sugar
+from .quant import codec, layout
+from .store import Store
 
 MESH_NOT_PORTED = (
     "sharded serving (mesh.coordinator / mesh.shard_serving) is not ported "
@@ -78,7 +77,7 @@ def build_store(cfg: config_mod.Config):
     Priority: postgres DSNs (primary + strict-round-robin read replicas)
     > database.remote (another instance's store server) > local SQLite."""
     if cfg.database.postgres:
-        from vectorsearch_tpu.store.pg import PgStore
+        from .store.pg import PgStore
 
         store = PgStore(
             list(cfg.database.postgres), list(cfg.database.postgres_readonly)
@@ -91,7 +90,7 @@ def build_store(cfg: config_mod.Config):
         )
         return store
     if cfg.database.remote:
-        from vectorsearch_tpu.store.remote import RemoteStore
+        from .store.remote import RemoteStore
 
         store = RemoteStore(cfg.database.remote, token=cfg.database.store_token)
         sugar().info("using remote store %s", cfg.database.remote)
@@ -122,7 +121,7 @@ def _serve_store(cfg: config_mod.Config, store):
             "that store directly", type(store).__name__,
         )
         return None
-    from vectorsearch_tpu.store.remote import StoreServer
+    from .store.remote import StoreServer
 
     host, port = _addr(cfg.database.serve_store)
     server = StoreServer(

@@ -30,8 +30,7 @@ import asyncio
 import ctypes
 import struct
 
-from vectorsearch_tpu.logger import sugar
-
+from ..logger import sugar
 from . import http
 
 # ---- frame types (RFC 7540 §6) ----

@@ -32,18 +32,14 @@ import os
 import threading
 from urllib.parse import unquote
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.logger import next_txid, sugar
-from vectorsearch_tpu.store.db import HAVE_ZSTD
-
+from .. import constants
 from ..engine.engine import RequestCanceled
+from ..logger import next_txid, sugar
+from ..store.db import HAVE_ZSTD
+from ..store.db import compress as zstd_compress
 from ..utils import device_memory_stats
 
-# the JAX package's pages, read in place
-STATIC_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
-    "vectorsearch_tpu", "api", "static",
-)
+STATIC_DIR = os.path.join(os.path.dirname(__file__), "static")
 
 MAX_BODY = 256 * 1024 * 1024  # the JAX app's client_max_size
 # zip-bomb guard on streamed request decompression
@@ -246,7 +242,7 @@ def _zstd_decompress(raw: bytes) -> bytes:
     try:
         import zstandard
     except ImportError:
-        from vectorsearch_tpu.store.db import decompress
+        from ..store.db import decompress
 
         return decompress(raw)
     dctx = zstandard.ZstdDecompressor().decompressobj()
@@ -285,20 +281,8 @@ def _accepts_zstd(request: Request) -> bool:
     return HAVE_ZSTD and "zstd" in request.headers.get("accept-encoding", "").lower()
 
 
-def _compressor():
-    """A zstd compress function of the router's own (store.db's level). A
-    zstd context is not thread-safe, and store.db's is used from the
-    executor threads, so responses compressed on the event loop do not
-    share it. None without zstandard."""
-    if not HAVE_ZSTD:
-        return None
-    import zstandard
-
-    return zstandard.ZstdCompressor(level=1).compress
-
-
 def _json_response(request: Request, obj, compress=None) -> Response:
-    """`compress` (from _compressor) marks a route whose responses are
+    """`compress` (build_app's) marks a route whose responses are
     zstd-compressed for a client that accepts it."""
     raw = json.dumps(obj).encode("utf-8")
     headers = {}
@@ -312,7 +296,8 @@ def build_app(engine):
     callable from Request to Response, shared by the HTTP/1.1 server and
     the TLS listener."""
     routes = {}
-    compress = _compressor()
+    # store.db's zstd compress (a context per thread); none without zstandard
+    compress = zstd_compress if HAVE_ZSTD else None
 
     def handler(methods, fn, compressible=False):
         async def wrapped(request: Request) -> Response:

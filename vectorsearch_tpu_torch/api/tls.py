@@ -16,7 +16,7 @@ import ssl
 import tempfile
 import threading
 
-from vectorsearch_tpu.logger import sugar
+from ..logger import sugar
 
 RELOAD_INTERVAL_S = 3600.0
 

@@ -34,12 +34,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.logger import sugar
-from vectorsearch_tpu.quant.layout import PackedVectors
-
+from .. import constants
 from ..device import resolve, to_device, to_host
 from ..kernels import kmeans as kmeans_kernels
+from ..logger import sugar
+from ..quant.layout import PackedVectors
 from .progress import tracker as _progress
 
 

@@ -152,7 +152,7 @@ class BuildProgress:
             self._watcher.start()
 
     def _watch(self) -> None:
-        from vectorsearch_tpu.logger import sugar
+        from ..logger import sugar
 
         idle_since = time.monotonic()
         while True:

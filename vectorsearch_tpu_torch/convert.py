@@ -14,12 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vectorsearch_tpu.quant.layout import PackedVectors
-
 from .device import resolve, to_device, to_host
 from .index.flat import FlatIndex
 from .index.ivf import IVFIndex, _upload
 from .kernels import cosine
+from .quant.layout import PackedVectors
 
 _FIELDS = ("codes", "scale", "offset", "inv_norm")
 

@@ -15,19 +15,61 @@
 //
 // What bounds it on this card: arithmetic. It does 2 * K flops per code
 // byte (K = 1024 .. 16384), far above the ~295 flops per byte at which the
-// bf16 tensor cores, not the memory, become the limit. So the products run
-// on the tensor cores: one block of 8 warps per 64 rows walks all K in
-// tiles of 128 centroids; per 64-dim slice the codes are widened int8 ->
-// bf16 in shared memory (exact) beside the slice of cn, and WMMA
-// (bf16 x bf16 -> f32) takes the products. The epilogue applies the
-// affine sidecars with the same roundings as the plain version and keeps
-// a running (max, argmax) per row, so nothing of size N x K reaches
-// memory. Ties go to the lowest k, as torch.argmax does: the lowest index
-// within a tile, and only a strictly greater value across tiles. A bf16 x
-// int8 product is exact in f32, so a cid differs from the plain version's
-// only where two sims differ in the order of their f32 sums (a near-tie).
-// The TPU kernel keeps a padding mask kmask; the port pads no centroid
-// set, so the kernel masks only its own K tail. It has no VMEM bound on K.
+// bf16 tensor cores, not the memory, become the limit; cn (6 MB at K=4096,
+// 25 MB at K=16384) stays in the 50 MB L2. So the design keeps the tensor
+// cores fed and reads each code byte from device memory once:
+//
+// - One block per tile of A_ROWS = 128 rows: two consumer warpgroups of 64
+//   rows each and one producer warpgroup (384 threads, one block per SM),
+//   which gives its registers to the consumers (setmaxnreg 40 / 232).
+// - The tile's int8 codes stay resident in shared memory across every K
+//   tile. TMA loads them once, as D / 16 boxes of [128 rows x 16 bytes],
+//   so that a thread's A-fragment bytes of one k-step are one 32-bit word
+//   per row half and a warp's loads hit 16 distinct banks.
+// - One producer thread streams cn tiles of A_CENT = 256 centroids x 64 dims
+//   (32 KB, 128-byte swizzle) through a ring of up to 4 stages with full
+//   and empty mbarriers.
+// - The consumers run wgmma.mma_async m64n256k16 (bf16 x bf16 -> f32) with
+//   A in registers: each k-step's codes are widened int8 -> bf16 straight
+//   into wgmma's A-fragment layout (exact: x + 128 in the mantissa of
+//   2^23, less 2^23 + 128, whose top half is the bf16). B is the swizzled
+//   cn tile. The next 64-dim slice is widened while the current slice's
+//   four wgmmas run.
+// - The epilogue stays in registers: the sidecars are applied to the
+//   accumulators with the plain version's roundings, a running (max,
+//   argmax) is kept per row, and the four lanes that share a row reduce
+//   with shuffles once, at the end. Nothing of size N x K and no
+//   accumulator tile goes through shared memory.
+//
+// Operand arrangement: codes as the register A operand, widened once per K
+// tile, rather than widened once into shared memory as bf16. The bf16 copy
+// of a 128 x 768 tile would take 192 KB and leave room for only one cn
+// stage; the int8 tile takes 96 KB beside a ring of four 32 KB stages.
+// The price is the widening, ~5 integer and float instructions per pair of
+// codes per K tile, which runs beside the tensor cores.
+//
+// Ties go to the lowest k, as torch.argmax does: a thread walks its
+// columns in increasing k with a strict `>`, and the lanes of a row take
+// the lower index on an equal value. A bf16 x int8 product is exact in
+// f32, so a cid differs from the plain version's only where two sims
+// differ in the order of their f32 sums (a near-tie). The TPU kernel keeps
+// a padding mask kmask; the port pads no centroid set, so the kernel masks
+// only its own K tail. It has no VMEM bound on K.
+//
+// Tails: TMA fills rows past N, centroids past K and dims past D with
+// zeros; the epilogue masks k >= K and stores no row >= N. TMA needs 16-
+// byte global strides, so D % 16 == 0: the wrapper pads codes and cn with
+// zero columns otherwise (exact). Where the 128-row int8 tile and two cn
+// stages do not fit in shared memory (D >= 1296), the codes are streamed
+// with each cn slice through the ring instead of resident: the same
+// kernel, read from the stage rather than from the resident tile.
+//
+// Left for later work. Tried and slower on the card: blocks paired in
+// 2-CTA clusters that multicast each cn tile (half the L2 reads), L2
+// eviction hints, and two slices of wgmmas in flight per warpgroup (ptxas
+// then serializes them). Not tried: a persistent schedule that loads the
+// next row tile's codes under the current tile's products, and the two
+// warpgroups' epilogues kept out of step.
 //
 // vs_kmeans_accumulate, given the rows ordered by cluster (`order`, a
 // stable sort of cid) and each cluster's segment [seg[k], seg[k+1]) of
@@ -46,207 +88,420 @@
 // on the same input give bit-identical sums. The TPU kernel splits each
 // value into hi + lo bf16 (about 16 mantissa bits); this kernel keeps the
 // full f32 value, as the plain version does. Clusters with no members get
-// zero sums and a zero count.
-//
-// Any N, K >= 1 and D >= 1: tails in N, K and D are zero in shared memory
-// or masked, never read out of bounds. D % 16 == 0 takes 16-byte loads,
-// any other D element loads.
-//
-// Left for later work: keeping a row tile's widened codes resident across
-// the K tiles, a cp.async/TMA pipeline, and wgmma.
+// zero sums and a zero count. Any K >= 1 and D >= 1; D % 4 == 0 takes
+// 4-byte loads, any other D byte loads.
 //
 // C interface (loaded with ctypes): each entry point launches on the
-// given stream and returns cudaGetLastError().
+// given stream and returns cudaGetLastError() (or the error that stopped
+// it before the launch).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 #include <string.h>
-
-using namespace nvcuda;
 
 namespace {
 
 // ------------------------------------------------------------------ assign
 
-constexpr int A_ROWS = 64;          // data rows per block
-constexpr int A_CENT = 128;         // centroids per K tile
-constexpr int A_DC = 64;            // contraction dims staged per step
-constexpr int A_LDS = A_DC + 8;     // staged row stride, bf16 (144 B)
-constexpr int A_LDA = A_CENT + 4;   // accumulator row stride, f32
-constexpr int A_WARPS = 8;          // 2 x 4 warps of 32 rows x 32 centroids
-constexpr int A_THREADS = A_WARPS * 32;
-constexpr int A_TPR = A_THREADS / A_ROWS;  // epilogue threads per row (4)
+constexpr int A_ROWS = 128;             // data rows per block (2 x 64)
+constexpr int A_CENT = 256;             // centroids per K tile (wgmma N)
+constexpr int A_SLICE = 64;             // dims per ring stage (128 B of bf16)
+constexpr int A_CHUNK = A_ROWS * 16;    // one k-step's codes: 128 rows x 16 B
+constexpr int A_CN_STAGE = A_CENT * A_SLICE * 2;  // 32 KB
+constexpr int A_MAX_STAGES = 4;
+constexpr int A_CONSUMER_WARPS = 8;
+constexpr int A_THREADS = (A_CONSUMER_WARPS + 4) * 32;  // + the producer WG
+constexpr int A_SMEM_MAX = 232448;      // a block's limit on sm_90
+constexpr int A_SMEM_SLACK = 1024 + 128;  // 1024-byte alignment, barriers
 
-template <bool VEC>
-__global__ void __launch_bounds__(A_THREADS)
-kmeans_assign_kernel(const int8_t* __restrict__ codes,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 2D TMA load of the box at (x, y) (x innermost) into shared memory;
+// completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile written by TMA with the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
+// k-step j of the 64-dim slice starts 32 * j bytes in
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// pins the accumulators in program order around the asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 256] (+)= a[64 x 16] (registers, bf16) x b[16 x 256] (shared, bf16)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc,
+                                                 uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// two signed codes (bytes s and s + 1 of w) -> a bf16x2, exactly: x + 128
+// in the low mantissa of 2^23, less 2^23 + 128, is x in f32, and x has at
+// most 8 significant bits, so the top half of the f32 is x in bf16
+__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t s) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f0, f1, out;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(f0) : "r"(u), "r"(0x4B000000u), "r"(0x7440u | s));
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(f1) : "r"(u), "r"(0x4B000000u), "r"(0x7440u | (s + 1)));
+  const float x0 = __fsub_rn(__uint_as_float(f0), 8388736.0f);
+  const float x1 = __fsub_rn(__uint_as_float(f1), 8388736.0f);
+  asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(out) : "r"(__float_as_uint(x0)), "r"(__float_as_uint(x1)));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t saddr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(saddr));
+  return v;
+}
+
+// the A fragments of one 64-dim slice (4 k-steps) of this thread's two
+// rows, from [k-step][128 rows][16 bytes] codes at shared address `base`.
+// K-steps past the slice's `nk` read chunk 0 again and are zeroed: no
+// branch, so the fragments are defined on every path to the wgmmas
+__device__ __forceinline__ void widen_slice(uint32_t (&a)[4][4],
+                                            uint32_t base, int nk, int rloc,
+                                            int q) {
+  const uint32_t s = (q & 1) * 2;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t keep = kk < nk ? 0xffffffffu : 0u;
+    const uint32_t c =
+        base + (kk < nk ? kk : 0) * A_CHUNK + rloc * 16 + 4 * (q >> 1);
+    const uint32_t w00 = lds_u32(c);
+    const uint32_t w01 = lds_u32(c + 8);
+    const uint32_t w10 = lds_u32(c + 8 * 16);
+    const uint32_t w11 = lds_u32(c + 8 * 16 + 8);
+    a[kk][0] = widen2(w00, s) & keep;  // row r, dims 2q, 2q + 1
+    a[kk][1] = widen2(w10, s) & keep;  // row r + 8
+    a[kk][2] = widen2(w01, s) & keep;  // row r, dims 2q + 8, 2q + 9
+    a[kk][3] = widen2(w11, s) & keep;  // row r + 8
+  }
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(A_THREADS, 1)
+kmeans_assign_kernel(const __grid_constant__ CUtensorMap map_codes,
+                     const __grid_constant__ CUtensorMap map_cn,
                      const float* __restrict__ scale,
                      const float* __restrict__ offset,
                      const float* __restrict__ inv_norm,
-                     const __nv_bfloat16* __restrict__ cn,
                      const float* __restrict__ csum,
-                     int32_t* __restrict__ cid,
-                     int N, int D, int K) {
-  constexpr int X_BYTES = A_ROWS * A_LDS * 2;
-  constexpr int C_BYTES = A_CENT * A_LDS * 2;
-  constexpr int ACC_BYTES = A_ROWS * A_LDA * 4;
-  constexpr int SMEM =
-      (X_BYTES + C_BYTES) > ACC_BYTES ? (X_BYTES + C_BYTES) : ACC_BYTES;
-  // the staged operands and, after a tile's last slice, its f32 products
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __shared__ float cs_s[A_CENT];
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* c_s = reinterpret_cast<__nv_bfloat16*>(smem + X_BYTES);
-  float* acc_s = reinterpret_cast<float*>(smem);
+                     int32_t* __restrict__ cid, int N, int D, int K,
+                     int stages, int stage_bytes) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = smem;                              // stages x stage_bytes
+  uint8_t* codes_s = smem + stages * stage_bytes;    // RESIDENT: 128 x D
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      codes_s + (RESIDENT ? A_ROWS * D : 0));
+  uint64_t* full = bars;
+  uint64_t* empty = bars + A_MAX_STAGES;
+  uint64_t* codes_full = bars + 2 * A_MAX_STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 4;  // the warp's 32 of the 64 rows
-  const int wc = warp % 4;  // the warp's 32 of the 128 centroids
-  const int64_t row0 = (int64_t)blockIdx.x * A_ROWS;
+  const int nks = D / 16;                 // k-steps of 16 dims
+  const int nsl = (nks + 3) / 4;          // 64-dim slices
+  const int total = ((K + A_CENT - 1) / A_CENT) * nsl;
+  const int row0 = blockIdx.x * A_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // epilogue: A_TPR adjacent threads per row; thread `part` takes the
-  // columns part, part + A_TPR, ... (bank-conflict free)
-  const int er = tid / A_TPR, part = tid % A_TPR;
-  const int64_t grow = row0 + er;
-  const bool live = grow < N;
-  float r_sc = 0.f, r_of = 0.f, r_in = 0.f;
-  if (live) {
-    r_sc = scale[grow];
-    r_of = offset[grow];
-    r_in = inv_norm[grow];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], A_CONSUMER_WARPS);
+    }
+    mbar_init(codes_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  float best = -INFINITY;
-  int barg = 0;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < K; k0 += A_CENT) {
-    if (tid < A_CENT) cs_s[tid] = (k0 + tid < K) ? csum[k0 + tid] : 0.f;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  if (warp >= A_CONSUMER_WARPS) {
+    // ---- producer warpgroup: one thread issues every TMA load, the
+    // resident codes once, then the cn slices; the rest only give their
+    // registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == A_CONSUMER_WARPS && lane == 0) {
+      if (RESIDENT) {
+        mbar_expect_tx(codes_full, nks * A_CHUNK);
+        for (int c = 0; c < nks; ++c)
+          tma_load_2d(codes_s + c * A_CHUNK, &map_codes, 16 * c, row0,
+                      codes_full);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int g = 0; g < total; ++g) {
+        const int t = g / nsl, sl = g % nsl;
+        const int nk = min(4, nks - 4 * sl);
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* dst = ring + stage * stage_bytes;
+        mbar_expect_tx(&full[stage], A_CN_STAGE + (RESIDENT ? 0 : nk * A_CHUNK));
+        tma_load_2d(dst, &map_cn, A_SLICE * sl, A_CENT * t, &full[stage]);
+        if (!RESIDENT)
+          for (int c = 0; c < nk; ++c)
+            tma_load_2d(dst + A_CN_STAGE + c * A_CHUNK, &map_codes,
+                        16 * (4 * sl + c), row0, &full[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of the
+    // tile; this thread rows rloc and rloc + 8, columns 2q, 2q + 1 of each
+    // group of 8
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp / 4;
+    const int q = lane & 3;
+    const int rloc = wg * 64 + (warp % 4) * 16 + (lane >> 2);
+    float r_sc[2], r_of[2], r_in[2], best[2];
+    int barg[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[r][f], 0.0f);
+    for (int h = 0; h < 2; ++h) {
+      const int grow = row0 + rloc + 8 * h;
+      const bool live = grow < N;
+      r_sc[h] = live ? scale[grow] : 0.f;
+      r_of[h] = live ? offset[grow] : 0.f;
+      r_in[h] = live ? inv_norm[grow] : 0.f;
+      best[h] = -INFINITY;
+      barg[h] = 0;
+    }
 
-    for (int d0 = 0; d0 < D; d0 += A_DC) {
-      if (VEC) {
-        // 64 rows x 64 dims of codes, 16 int8 per load, widened to bf16
-        for (int u = tid; u < A_ROWS * (A_DC / 16); u += A_THREADS) {
-          const int r = u / (A_DC / 16), p = u % (A_DC / 16);
-          const int d = d0 + p * 16;
-          const int64_t gr = row0 + r;
-          int4 v = make_int4(0, 0, 0, 0);
-          if (gr < N && d < D)
-            v = __ldg(reinterpret_cast<const int4*>(codes + gr * D + d));
-          const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-          uint32_t w[8];
+    float acc[128];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            __nv_bfloat162 pr =
-                __floats2bfloat162_rn((float)b[2 * j], (float)b[2 * j + 1]);
-            memcpy(&w[j], &pr, 4);
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t a_even[4][4], a_odd[4][4];
+    const uint32_t ring_s = smem_u32(ring);
+    const uint32_t codes_u = smem_u32(codes_s);
+    int stage = 0, sl = 0, k0 = 0;
+    uint32_t phase = 0;
+
+    // slice g's four wgmmas from `cur`, and slice g + 1 widened into `next`
+    // while they run. Two register sets, so no copy and no register reuse
+    // inside a wgmma's flight. A step past the last slice (`live` false,
+    // for an odd count) multiplies zero fragments: it adds exactly 0.
+    auto step = [&](uint32_t (&cur)[4][4], uint32_t (&next)[4][4], int g,
+                    bool live) {
+      const uint32_t stage_s = ring_s + stage * stage_bytes;
+      if (live) mbar_wait(&full[stage], phase);
+      const uint64_t desc = sw128_desc(stage_s);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n256k16(acc, cur[kk], desc + 2 * kk,
+                         (!live || sl > 0 || kk > 0) ? 1u : 0u);
+      wgmma_commit();
+      int nstage = stage + 1;
+      uint32_t nphase = phase;
+      if (nstage == stages) {
+        nstage = 0;
+        nphase ^= 1;
+      }
+      const bool more = g + 1 < total;
+      const int nsl2 = sl + 1 < nsl ? sl + 1 : 0;
+      if (!RESIDENT && more) mbar_wait(&full[nstage], nphase);
+      widen_slice(next,
+                  RESIDENT ? codes_u + 4 * nsl2 * A_CHUNK
+                           : ring_s + nstage * stage_bytes + A_CN_STAGE,
+                  more ? min(4, nks - 4 * nsl2) : 0, rloc, q);
+      wgmma_wait0();
+      fence_acc(acc);
+      if (!live) return;
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      stage = nstage;
+      phase = nphase;
+      if (++sl < nsl) return;
+      // the K tile is complete: sims with the plain version's roundings,
+      // ((offset * csum) + (scale * dot)) * inv_norm, and the running
+      // argmax; columns in increasing k, so a strict > keeps the lowest
+#pragma unroll
+      for (int j = 0; j < A_CENT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + 8 * j + 2 * q + e;
+          if (k < K) {
+            const float cs = __ldg(csum + k);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float s = __fmul_rn(
+                  __fadd_rn(__fmul_rn(r_of[h], cs),
+                            __fmul_rn(r_sc[h], acc[4 * j + 2 * h + e])),
+                  r_in[h]);
+              if (s > best[h]) {
+                best[h] = s;
+                barg[h] = k;
+              }
+            }
           }
-          int4* dst = reinterpret_cast<int4*>(x_s + r * A_LDS + p * 16);
-          dst[0] = make_int4(w[0], w[1], w[2], w[3]);
-          dst[1] = make_int4(w[4], w[5], w[6], w[7]);
-        }
-        // 128 centroids x 64 dims of cn, 8 bf16 per load
-        for (int u = tid; u < A_CENT * (A_DC / 8); u += A_THREADS) {
-          const int r = u / (A_DC / 8), p = u % (A_DC / 8);
-          const int d = d0 + p * 8;
-          const int k = k0 + r;
-          int4 v = make_int4(0, 0, 0, 0);
-          if (k < K && d < D)
-            v = __ldg(reinterpret_cast<const int4*>(cn + (int64_t)k * D + d));
-          *reinterpret_cast<int4*>(c_s + r * A_LDS + p * 8) = v;
-        }
-      } else {
-        for (int u = tid; u < A_ROWS * A_DC; u += A_THREADS) {
-          const int r = u / A_DC, j = u % A_DC;
-          const int d = d0 + j;
-          const int64_t gr = row0 + r;
-          const float x = (gr < N && d < D) ? (float)codes[gr * D + d] : 0.f;
-          x_s[r * A_LDS + j] = __float2bfloat16_rn(x);
-        }
-        for (int u = tid; u < A_CENT * A_DC; u += A_THREADS) {
-          const int r = u / A_DC, j = u % A_DC;
-          const int d = d0 + j;
-          const int k = k0 + r;
-          c_s[r * A_LDS + j] = (k < K && d < D) ? cn[(int64_t)k * D + d]
-                                                : __float2bfloat16_rn(0.f);
         }
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < A_DC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fb[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          wmma::load_matrix_sync(fa[r], x_s + (wr * 32 + r * 16) * A_LDS + kk,
-                                 A_LDS);
-#pragma unroll
-        for (int f = 0; f < 2; ++f)
-          wmma::load_matrix_sync(fb[f], c_s + (wc * 32 + f * 16) * A_LDS + kk,
-                                 A_LDS);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-            wmma::mma_sync(acc[r][f], fa[r], fb[f], acc[r][f]);
-      }
-      __syncthreads();
+      sl = 0;
+      k0 += A_CENT;
+    };
+
+    if (RESIDENT)
+      mbar_wait(codes_full, 0);
+    else
+      mbar_wait(&full[0], 0);
+    widen_slice(a_even, RESIDENT ? codes_u : ring_s + A_CN_STAGE, min(4, nks),
+                rloc, q);
+    for (int g = 0; g < total; g += 2) {
+      step(a_even, a_odd, g, true);
+      step(a_odd, a_even, g + 1, g + 1 < total);
     }
 
-    // the staging buffers are dead: the tile's products take their place
+    // the four lanes of a row: the larger wins, the lower index on a tie
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
-        wmma::store_matrix_sync(acc_s + (wr * 32 + r * 16) * A_LDA + wc * 32 +
-                                    f * 16,
-                                acc[r][f], A_LDA, wmma::mem_row_major);
-    __syncthreads();
-
-    // sims with the plain version's roundings:
-    // ((offset * csum) + (scale * dot)) * inv_norm
-    float tb = -INFINITY;
-    int ta = 0x7fffffff;
-    for (int i = 0; i < A_CENT / A_TPR; ++i) {
-      const int j = part + A_TPR * i;
-      if (k0 + j < K) {
-        const float s = __fmul_rn(
-            __fadd_rn(__fmul_rn(r_of, cs_s[j]),
-                      __fmul_rn(r_sc, acc_s[er * A_LDA + j])),
-            r_in);
-        if (s > tb) {
-          tb = s;
-          ta = k0 + j;
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best[h], off);
+        const int oa = __shfl_xor_sync(0xffffffffu, barg[h], off);
+        if (ob > best[h] || (ob == best[h] && oa < barg[h])) {
+          best[h] = ob;
+          barg[h] = oa;
         }
       }
+      const int grow = row0 + rloc + 8 * h;
+      if (q == 0 && grow < N) cid[grow] = barg[h];
     }
-    // the A_TPR threads of a row are adjacent lanes: the larger wins, the
-    // lower index on a tie
-#pragma unroll
-    for (int off = 1; off < A_TPR; off <<= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, tb, off);
-      const int oa = __shfl_xor_sync(0xffffffffu, ta, off);
-      if (ob > tb || (ob == tb && oa < ta)) {
-        tb = ob;
-        ta = oa;
-      }
-    }
-    if (tb > best) {  // strict: an equal value in a later tile has a higher k
-      best = tb;
-      barg = ta;
-    }
-    __syncthreads();  // acc_s and cs_s are staged into again
   }
-  if (live && part == 0) cid[grow] = barg;
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, reached through the runtime so
+// that the library links against no libcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a 2D row-major [rows, cols] map with boxes of [box_rows, box_cols]
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+              const void* base, uint64_t rows, uint64_t cols,
+              uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swz) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // -------------------------------------------------------------- accumulate
@@ -335,16 +590,37 @@ extern "C" int vs_kmeans_assign(const void* codes, const void* scale,
                                 const void* offset, const void* inv_norm,
                                 const void* cn, const void* csum, void* cid,
                                 int N, int D, int K, void* stream) {
-  if (N <= 0 || D <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || D <= 0 || K <= 0 || D % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int budget = A_SMEM_MAX - A_SMEM_SLACK;
+  const int codes_bytes = A_ROWS * D;
+  const bool resident = codes_bytes + 2 * A_CN_STAGE <= budget;
+  const int stage_bytes = resident ? A_CN_STAGE : A_CN_STAGE + 4 * A_CHUNK;
+  int stages = A_MAX_STAGES;
+  if (resident) stages = min(A_MAX_STAGES, (budget - codes_bytes) / A_CN_STAGE);
+  const int smem = 1024 + stages * stage_bytes + (resident ? codes_bytes : 0) +
+                   (2 * A_MAX_STAGES + 1) * 8;
+  CUtensorMap map_codes, map_cn;
+  if (!make_map(&map_codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, N, D,
+                A_ROWS, 16, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map(&map_cn, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, cn, K, D, A_CENT,
+                A_SLICE, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((N + A_ROWS - 1) / A_ROWS);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define VS_LAUNCH(V)                                                          \
-  kmeans_assign_kernel<V><<<grid, A_THREADS, 0, st>>>(                        \
-      static_cast<const int8_t*>(codes), static_cast<const float*>(scale),    \
-      static_cast<const float*>(offset), static_cast<const float*>(inv_norm), \
-      static_cast<const __nv_bfloat16*>(cn), static_cast<const float*>(csum), \
-      static_cast<int32_t*>(cid), N, D, K)
-  if (D % 16 == 0)
+#define VS_LAUNCH(R)                                                          \
+  do {                                                                        \
+    cudaError_t e = cudaFuncSetAttribute(                                     \
+        kmeans_assign_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+        smem);                                                                \
+    if (e != cudaSuccess) return (int)e;                                      \
+    kmeans_assign_kernel<R><<<grid, A_THREADS, smem, st>>>(                   \
+        map_codes, map_cn, static_cast<const float*>(scale),                  \
+        static_cast<const float*>(offset),                                    \
+        static_cast<const float*>(inv_norm), static_cast<const float*>(csum), \
+        static_cast<int32_t*>(cid), N, D, K, stages, stage_bytes);            \
+  } while (0)
+  if (resident)
     VS_LAUNCH(true);
   else
     VS_LAUNCH(false);

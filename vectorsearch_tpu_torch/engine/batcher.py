@@ -33,8 +33,8 @@ import threading
 
 import numpy as np
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.utils.errors import fresh_exc
+from .. import constants
+from ..utils.errors import fresh_exc
 
 
 # Batch size classes: each class is one compiled program per (snapshot

@@ -11,8 +11,8 @@ from __future__ import annotations
 import threading
 import time
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.utils.errors import fresh_exc
+from .. import constants
+from ..utils.errors import fresh_exc
 
 
 class _InFlight:

@@ -29,16 +29,15 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.embed.base import AIProvider
-from vectorsearch_tpu.logger import next_txid, sugar
-from vectorsearch_tpu.quant import codec, layout
-from vectorsearch_tpu.quant.layout import PackedVectors
-from vectorsearch_tpu.store import Store, snapshots
-
+from .. import constants
 from ..build import build_centroids
 from ..device import hbm_budget, resolve, to_host
+from ..embed.base import AIProvider
 from ..index import IVFIndex
+from ..logger import next_txid, sugar
+from ..quant import codec, layout
+from ..quant.layout import PackedVectors
+from ..store import Store, snapshots
 from .batcher import QueryBatcher
 from .cache import EngineCache
 from .docmap import DocMap

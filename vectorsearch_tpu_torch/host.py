@@ -1,17 +1,20 @@
-"""The JAX package's jax-free host modules that the port shares.
+"""The port's host modules in one place: the corpus codec and packed
+layout, the SQLite store and its snapshots, the embedder interface and
+the deterministic noop embedder, and the config file's schema.
 
-Re-exported so that a caller of the port imports only the port: the
-corpus codec and packed layout, the SQLite store and its snapshots, the
-embedder interface and the deterministic noop embedder, and the config
-file's schema. None of them imports jax (tests/test_torch_imports.py
+Each is the port's own copy of the JAX package's module of the same
+relative path (quant/, store/, embed/, config.py, constants.py), with the
+same wire codec, int8 layout, SQLite schema and snapshot format, so that
+a store or snapshot written by either package loads in the other. The
+port imports nothing of the JAX package (tests/test_torch_imports.py
 checks it).
 """
-from vectorsearch_tpu import config, constants
-from vectorsearch_tpu.embed.base import AIProvider
-from vectorsearch_tpu.embed.noop import NoopAI
-from vectorsearch_tpu.quant import codec, layout
-from vectorsearch_tpu.quant.layout import PackedVectors
-from vectorsearch_tpu.store import Store, snapshots
+from . import config, constants
+from .embed.base import AIProvider
+from .embed.noop import NoopAI
+from .quant import codec, layout
+from .quant.layout import PackedVectors
+from .store import Store, snapshots
 
 __all__ = [
     "AIProvider", "NoopAI", "PackedVectors", "Store", "codec", "config",

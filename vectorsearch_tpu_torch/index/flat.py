@@ -18,11 +18,10 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.quant.layout import PackedVectors
-
+from .. import constants
 from ..device import resolve, to_device, to_host
 from ..kernels import cosine
+from ..quant.layout import PackedVectors
 
 
 def round_capacity(n: int) -> int:

@@ -30,11 +30,10 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from vectorsearch_tpu import constants
-from vectorsearch_tpu.quant.layout import PackedVectors
-
+from .. import constants
 from ..device import check_exact_f32, resolve, to_device, to_host
 from ..kernels import cosine, grouped_scan
+from ..quant.layout import PackedVectors
 from .flat import FlatIndex
 
 
@@ -246,7 +245,7 @@ class IVFIndex:
             fit_cap = (fit_cap // constants.BUCKET_ROUND) * constants.BUCKET_ROUND
             clamped = max(floor_cap, min(cap, fit_cap))
             if clamped != cap:
-                from vectorsearch_tpu.logger import sugar
+                from ..logger import sugar
 
                 sugar().info(
                     "bucket capacity %d -> %d to fit HBM budget %.2f GB "
@@ -256,7 +255,7 @@ class IVFIndex:
                 )
                 cap = clamped
             if kk * cap * bytes_per_slot > bucket_budget:
-                from vectorsearch_tpu.logger import sugar
+                from ..logger import sugar
 
                 sugar().warning(
                     "packed index %.2f GB exceeds HBM budget %.2f GB even "
@@ -295,7 +294,7 @@ class IVFIndex:
             > hbm_budget - constants.BUCKET_ROUND * (d + 13)
         )
         if frozen:
-            from vectorsearch_tpu.logger import sugar
+            from ..logger import sugar
 
             sugar().info(
                 "bucket store frozen (2x%.1f GB copies exceed the %.1f GB "
@@ -397,7 +396,7 @@ class IVFIndex:
                 )
                 if action == "raise":
                     raise
-                from vectorsearch_tpu.logger import sugar
+                from ..logger import sugar
 
                 sugar().warning(
                     "ivf.search: out of memory (%s); retrying with %s",

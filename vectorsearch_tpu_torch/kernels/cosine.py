@@ -38,9 +38,8 @@ from __future__ import annotations
 
 import torch
 
-from vectorsearch_tpu.quant.layout import PackedVectors
-
 from ..device import check_exact_f32
+from ..quant.layout import PackedVectors
 
 NEG_INF = float("-inf")
 # widest contraction whose int8 x int8 partial sums stay exact in f32

@@ -28,9 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from vectorsearch_tpu.quant.layout import PackedVectors
-
 from ..device import check_exact_f32
+from ..quant.layout import PackedVectors
 from . import _build, cosine
 
 TILE_N = 1024  # corpus rows per tile

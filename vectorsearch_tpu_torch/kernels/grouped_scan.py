@@ -27,9 +27,8 @@ import os
 
 import torch
 
-from vectorsearch_tpu.quant.layout import PackedVectors
-
 from ..device import check_exact_f32
+from ..quant.layout import PackedVectors
 from . import _build, cosine
 
 # kernel launches since import (or since a caller reset it to 0): lets a

@@ -25,9 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from vectorsearch_tpu.quant.layout import PackedVectors
-
 from ..device import check_exact_f32
+from ..quant.layout import PackedVectors
 from . import _build, cosine
 
 # kernel launches since import (or since a caller reset them to 0): let a
@@ -141,12 +140,17 @@ def assign(rows: PackedVectors, cn_bf16, csum, chunk: int = DEFAULT_CHUNK):
     cid = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return cid
+    codes = rows.codes
+    if d % 16:
+        # TMA needs 16-byte row strides: zero columns add nothing to a dot
+        codes = torch.nn.functional.pad(codes, (0, 16 - d % 16))
+        cn_bf16 = torch.nn.functional.pad(cn_bf16, (0, 16 - d % 16))
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.vs_kmeans_assign(
-            rows.codes.data_ptr(), rows.scale.data_ptr(), rows.offset.data_ptr(),
+            codes.data_ptr(), rows.scale.data_ptr(), rows.offset.data_ptr(),
             rows.inv_norm.data_ptr(), cn_bf16.data_ptr(), csum.data_ptr(),
-            cid.data_ptr(), n, d, kk, _stream(dev),
+            cid.data_ptr(), n, codes.shape[1], kk, _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"assign: kernel launch failed, cudaError {err}")

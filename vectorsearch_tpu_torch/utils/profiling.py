@@ -14,9 +14,8 @@ import time
 
 import torch
 
-from vectorsearch_tpu.logger import sugar
-
 from ..device import default_device
+from ..logger import sugar
 
 
 @contextlib.contextmanager
