@@ -6,10 +6,18 @@
 Phases (any failure exits non-zero before the last line is printed):
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: nvcc builds every kernel of the path from vectorsearch_tpu_torch/csrc,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; beside it, ptxas's report
+     (`-Xptxas -v`) of the assign and the grouped-scan kernels;
   3. kernels against plain, with median CUDA-event times of both:
-     a. the grouped bucket-scan kernel at the search path's shapes (D=768,
-        cap=3072, K=995, B=512 at nprobe 1, 8 and 64);
+     a. the grouped bucket-scan kernel: its edge cases (a cluster with
+        count 0, with count = cap, counts off the 128- and 64-column grid,
+        cap 64 and 192, a cluster id out of range, D 16 to 3072, QT 8, 16,
+        32), then the search path's shapes (D=768, cap=3072, K=995, B=512
+        at nprobe 1, 8 and 64) on a synthetic store whose buckets are half
+        to all full; in phase 4 the same on the built index's own store
+        with the queries' real probes. Beside each time: torch.bmm of the
+        group rows by their buckets' bf16 codes (the product alone), and
+        the bound counted on every slot and on the live columns;
      b. the k-means assign and accumulate kernels at the build's shapes
         (1M x 768 clustered packed rows at K=1024 and 4096, and the
         superset phase's 196,608 rows at K=16,384): cid equal except at
@@ -22,11 +30,15 @@ Phases (any failure exits non-zero before the last line is printed):
         rows with tombstones, B=512, at N=1M and at N=1M-300 (a partial
         last tile): s8 band maxima bit-equal, bf16 within 1e-4 with the
         same -inf pattern; TOP/s and GB/s derived from the kernel time;
+        beside each, torch._int_mm / torch.matmul of the queries by the
+        codes (the product alone);
   4. index at the bench's scale: bench.py's 1M x 768 clustered corpus and
      512 queries (recipe copied), exact-f32 ground truth, the k-means build
      with bench.py's arguments, IVFIndex.build, then IVFIndex.search at
      nprobe 1, 2, 8, 64 and -1 (recall@10 and QPS), 10,000 inserts that
      must find themselves first and 10,000 deletes that must never return;
+     the searches once more under torch.profiler, device time by kind of
+     kernel beside the unprofiled wall (outside the phase's launch counts);
   5. flat: flat_search (k=10, k_bands=64) with the s8 and with the bf16
      band kernel, and FlatIndex.search(refine=32) beside them, on phase
      4's corpus, queries and truth: recall@10, no id twice in a result,
@@ -60,8 +72,9 @@ Phases (any failure exits non-zero before the last line is printed):
   9. the kernels line, the card line, and the contract line. Each kernel's
      entry has its bound (the larger of its bytes over 3.35 TB/s and its
      operations over the peak of their type, from this run's shapes), its
-     share of that bound, and the time of one PyTorch call that computes
-     the same function where one does (assign: the bf16 product alone).
+     share of that bound, and the time of one PyTorch call for the
+     product alone (no sidecars, argmax or maxima; accumulate has none).
+     The grouped scan's row is its time on the built index's store.
 
 Every kernel launch count is set to 0 just before each of phases 4-8 and
 read just after: phases 4, 6 and 7 must launch the grouped scan and both
@@ -209,8 +222,12 @@ def bound(bytes_moved, ops, peak_ops) -> dict:
     return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
-def median_ms(torch, fn, runs=20):
-    """Median CUDA-event time of fn() over `runs` launches, after a warm-up."""
+def median_ms(torch, fn, runs=20, launches=1):
+    """Median CUDA-event time of fn() over `runs` timings, after a warm-up.
+    A timing brackets `launches` calls and is divided by them: with one,
+    it holds the call's host side (a wrapper's checks and allocations run
+    while the card waits) as well as the kernel; with several, the host
+    runs ahead and the time is the kernel's own."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -218,10 +235,11 @@ def median_ms(torch, fn, runs=20):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(launches):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / launches)
     return float(np.median(times))
 
 
@@ -242,37 +260,200 @@ def phase_env(torch) -> str:
     return smi
 
 
-def phase_build() -> float:
+def phase_build() -> dict:
     """The kernel library, built as the wrappers build it; beside it, one
-    more compile of csrc/kmeans.cu with `-Xptxas -v` for ptxas's report of
-    the assign kernel (registers, shared memory, spills)."""
+    more compile each of csrc/kmeans.cu and csrc/grouped_scan.cu with
+    `-Xptxas -v` for ptxas's report of the assign and the grouped-scan
+    kernels (registers, shared memory, spills) and any warning that wgmma
+    was serialized (C7510-C7520)."""
     from vectorsearch_tpu_torch.kernels import _build
 
-    with tempfile.TemporaryDirectory(prefix="vs_ptxas_") as tmp, subprocess.Popen(
-        [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-c",
-         os.path.join(_build._CSRC, "kmeans.cu"), "-o", os.path.join(tmp, "kmeans.o")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    ) as ptxas:
+    reports = {}
+    with tempfile.TemporaryDirectory(prefix="vs_ptxas_") as tmp:
+        procs = {
+            src: subprocess.Popen(
+                [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-c",
+                 os.path.join(_build._CSRC, src), "-o", os.path.join(tmp, src + ".o")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in ("kmeans.cu", "grouped_scan.cu")
+        }
         t0 = time.perf_counter()
         path = _build.load()._name
         secs = time.perf_counter() - t0
-        report = ptxas.communicate()[0]
+        for src, proc in procs.items():
+            reports[src] = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{reports[src]}")
     log(f"build: {os.path.relpath(path)} in {secs:.2f} s")
-    if ptxas.returncode:
-        raise RuntimeError(f"nvcc -Xptxas -v kmeans.cu failed:\n{report}")
-    lines = report.splitlines()
-    for i, line in enumerate(lines):
-        if "Function properties for" in line and "kmeans_assign" in line:
-            log("ptxas kmeans_assign: " + " | ".join(
-                ln.strip() for ln in lines[i : i + 3]))
-    return secs
+    out = {"build_s": secs}
+    for src, kernel in (("kmeans.cu", "kmeans_assign"), ("grouped_scan.cu", "grouped_scores")):
+        lines = reports[src].splitlines()
+        out[kernel] = []
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and kernel in line:
+                out[kernel].append(" | ".join(ln.strip() for ln in lines[i : i + 3]))
+                log(f"ptxas {kernel}: " + out[kernel][-1])
+        warned = [ln.strip() for ln in lines if "C75" in ln or "warning" in ln.lower()]
+        out[kernel + "_warnings"] = warned
+        log(f"ptxas {src}: {len(warned)} warnings" + "".join("\n  " + w for w in warned[:20]))
+    return out
+
+
+def check_scan(torch, gs, args, bs, label):
+    """grouped_scores against grouped_scores_ref on `args`: the same -inf
+    pattern and no NaN, scores within KERNEL_ATOL, and block maxima equal to
+    the maxima of the kernel's own scores. Returns (max |err|, out, bmax)."""
+    out, bmax = gs.grouped_scores(*args, bs, True)
+    torch.cuda.synchronize()
+    ref, _ = gs.grouped_scores_ref(*args, bs, False)
+    finite = torch.isfinite(ref)
+    if not (torch.equal(torch.isfinite(out), finite)
+            and torch.equal(torch.isneginf(out), torch.isneginf(ref))):
+        raise AssertionError(f"{label}: -inf pattern differs from plain")
+    err = float((out[finite] - ref[finite]).abs().max()) if bool(finite.any()) else 0.0
+    if err > KERNEL_ATOL:
+        raise AssertionError(f"{label}: max |kernel - plain| {err} > {KERNEL_ATOL}")
+    g, qt, cap = out.shape
+    if not torch.equal(bmax, out.view(g, qt, cap // bs, bs).amax(-1)):
+        raise AssertionError(f"{label}: block maxima differ from the scores' own")
+    return err, out, bmax
+
+
+def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
+    """The scan kernel on one bucket store (codes, a, bv, bias, counts) for
+    the normalized queries `qn` and each nprobe's probe list: checked
+    against plain, then its time, the plain version's, the library
+    yardstick's, and its bound on both counts of the bytes."""
+    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
+
+    codes, a, bv, bias, counts = store
+    kk, cap, d = codes.shape
+    b = qn.shape[0]
+    live_cols = torch.clamp((counts.long() + 127) // 128 * 128, max=cap)
+    by_nprobe = {}
+    for nprobe, probed in probed_by_nprobe.items():
+        qt, gcl, qidx, _ = gs.build_groups(probed, kk)
+        qg, qsum = qn.bfloat16()[qidx], qn.sum(-1)[qidx]
+        args = (qg, qsum, gcl, counts, codes, a, bv, bias)
+        err, out, bmax = check_scan(torch, gs, args, 128, f"{label} nprobe={nprobe}")
+        ms = median_ms(torch, lambda: gs.grouped_scores(*args, 128, True), launches=10)
+        single_ms = median_ms(torch, lambda: gs.grouped_scores(*args, 128, True))
+        plain_ms = median_ms(torch, lambda: gs.grouped_scores_ref(*args, 128, True), 5)
+        g = int(gcl.numel())
+        # the library yardstick, product only (no sidecars, no maxima, every
+        # column of the bucket): torch.bmm of the group rows by their
+        # buckets' codes, gathered and widened to bf16 outside the timing
+        library_ms, library_note = None, None
+        try:
+            step = max(1, (2 << 30) // (cap * d * 2))
+            ops = [(qg[i : i + step], codes[gcl[i : i + step].long()].bfloat16().transpose(1, 2))
+                   for i in range(0, g, step)]
+            library_ms = median_ms(torch, lambda: [torch.bmm(q, c) for q, c in ops], 5)
+            del ops
+        except RuntimeError as e:  # out of memory, or a shape bmm refuses
+            library_note = str(e)[:200]
+        torch.cuda.empty_cache()
+        # this run's data. The codes and sidecars of the probed clusters read
+        # once, the group queries, gcl and counts read, the scores and
+        # maxima written. Counted on every slot of a probed bucket (as the
+        # runs before the kernel took `counts`), and on the live columns
+        # alone: a bucket's slots up to its count rounded up to a whole
+        # 128-column tile, which is all that the inputs make anyone read
+        pairs = torch.bincount(probed.reshape(-1).long(), minlength=kk)
+        hit = pairs > 0
+        fixed = (g * qt * (2 * d + 4) + 4 * g + 4 * int(hit.sum())
+                 + out.numel() * 4 + bmax.numel() * 4)
+        full = bound(int(hit.sum()) * cap * (d + 12) + fixed,
+                     2 * b * nprobe * cap * d, PEAK_BF16_FLOPS)
+        bnd = bound(int(live_cols[hit].sum()) * (d + 12) + fixed,
+                    2 * d * int((pairs * live_cols).sum()), PEAK_BF16_FLOPS)
+        r = by_nprobe[nprobe] = {
+            "G": g, "QT": qt, "max_abs_err": err, "ms": ms,
+            "single_launch_ms": single_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bnd, "share": bnd["bound_ms"] / ms,
+            "bound_all_slots_ms": full["bound_ms"],
+            "share_all_slots": full["bound_ms"] / ms,
+            "live_code_GB_per_s": int(live_cols[hit].sum()) * d / ms / 1e6,
+        }
+        if library_note:
+            r["library_note"] = library_note
+        lib = f"{library_ms:.3f} ms" if library_ms is not None else f"none ({library_note})"
+        log(f"kernel {label} nprobe={nprobe}: G={g} QT={qt} max_abs_err={err:.3g} "
+            f"bmax exact; kernel {ms:.3f} ms (10 launches back to back; one launch "
+            f"with the wrapper's host side {single_ms:.3f} ms) vs plain {plain_ms:.3f} ms, "
+            f"library {lib} "
+            f"(torch.bmm of the bf16 group rows by their buckets' codes widened to bf16: "
+            f"product only); bound on the live columns {bnd['bound_ms']:.3f} ms "
+            f"({bnd['bound_by']}), share {r['share']:.3f}; bound on every slot "
+            f"{full['bound_ms']:.3f} ms, share {r['share_all_slots']:.3f} "
+            f"(medians of 20 / 20 / 5 / 5, {smi})")
+        del out, bmax
+    return by_nprobe
+
+
+# the scan kernel's edge cases: (label, K, cap, D, QT, counts per cluster
+# (cycled), cluster ids of the groups or None for random ones)
+SCAN_EDGES = (
+    ("counts 0 / cap / ragged", 6, 512, 128, 8, (0, 512, 100, 129, 70, 448), None),
+    ("QT=16", 5, 384, 128, 16, (384, 1, 200, 0, 383), None),
+    ("QT=32", 5, 384, 128, 32, (127, 128, 129, 384, 64), None),
+    ("cap=64", 4, 64, 128, 8, (64, 0, 33, 1), None),
+    ("cap=192", 4, 192, 80, 16, (192, 100, 128, 65), None),
+    ("gcl out of range", 3, 256, 128, 8, (256, 200, 10), (-1, 0, 3, 2, 1, 1 << 20)),
+    ("D=80", 3, 256, 80, 32, (256, 130, 5), None),
+    ("D=16", 3, 128, 16, 8, (128, 64, 0), None),
+    ("D=768 QT=32", 4, 1024, 768, 32, (1000, 300, 1024, 0), None),
+    ("D=3072 QT=32 (query rows streamed)", 3, 256, 3072, 32, (256, 100, 0), None),
+    ("D=3072 QT=8", 3, 256, 3072, 8, (200, 256, 129), None),
+)
+
+
+def scan_edge_cases(torch, dev) -> float:
+    """grouped_scores against plain over SCAN_EDGES, with a tenth of the
+    live slots tombstoned; returns the worst |err|."""
+    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
+
+    worst = 0.0
+    for label, kk, cap, d, qt, cnts, ids in SCAN_EDGES:
+        gen = torch.Generator(device=dev).manual_seed(kk * cap + d + qt)
+        codes = torch.randint(-128, 128, (kk, cap, d), generator=gen, device=dev,
+                              dtype=torch.int8)
+        a, bv = (torch.rand((kk, cap), generator=gen, device=dev) * 0.01 for _ in range(2))
+        counts = torch.tensor([cnts[i % len(cnts)] for i in range(kk)],
+                              dtype=torch.int32, device=dev)
+        live = torch.rand((kk, cap), generator=gen, device=dev) > 0.1
+        col = torch.arange(cap, device=dev)
+        bias = torch.where((col[None] < counts[:, None]) & live, 0.0, float("-inf")).float()
+        g = 11 if ids is None else len(ids)
+        gcl = (torch.randint(0, kk, (g,), generator=gen, device=dev, dtype=torch.int32)
+               if ids is None else torch.tensor(ids, dtype=torch.int32, device=dev))
+        q = torch.randn((g, qt, d), generator=gen, device=dev)
+        q = q / q.norm(dim=-1, keepdim=True)
+        qg, qsum = q.bfloat16(), q.sum(-1)
+        bs = 128 if cap % 128 == 0 else 64
+        inside = (gcl >= 0) & (gcl < kk)
+        # plain gathers codes[gcl]: hold it to the groups with a cluster, and
+        # the kernel's groups without one to -inf everywhere
+        args = (qg, qsum, gcl, counts, codes, a, bv, bias)
+        out, bmax = gs.grouped_scores(*args, bs, True)
+        torch.cuda.synchronize()
+        if not (torch.isneginf(out[~inside]).all() and torch.isneginf(bmax[~inside]).all()):
+            raise AssertionError(f"scan edge {label}: a group without a cluster scored")
+        kept = (qg[inside], qsum[inside], gcl[inside], counts, codes, a, bv, bias)
+        err, out_in, bmax_in = check_scan(torch, gs, kept, bs, f"scan edge {label}")
+        if not (torch.equal(out_in, out[inside]) and torch.equal(bmax_in, bmax[inside])):
+            raise AssertionError(f"scan edge {label}: two launches differ")
+        worst = max(worst, err)
+        log(f"scan edge {label}: K={kk} cap={cap} D={d} QT={qt} bs={bs} G={g}: "
+            f"max_abs_err={err:.3g}, -inf pattern and maxima equal")
+    return worst
 
 
 def phase_kernel(torch, dev, smi: str) -> dict:
-    """grouped_scores against grouped_scores_ref on seeded data at the main
-    path's shapes; the groups come from the port's own group build."""
-    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
-
+    """grouped_scores against grouped_scores_ref: the edge cases, then seeded
+    data at the main path's shapes (a synthetic store, its buckets a half to
+    all full), the groups from the port's own group build."""
+    worst = scan_edge_cases(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     kk, cap, d, b = K_SCAN, CAP_SCAN, DIM, N_QUERIES
     codes = torch.randint(-127, 128, (kk, cap, d), generator=gen, device=dev,
@@ -283,46 +464,17 @@ def phase_kernel(torch, dev, smi: str) -> dict:
     live = torch.rand((kk, cap), generator=gen, device=dev) > 0.05
     col = torch.arange(cap, device=dev)
     bias = torch.where((col[None] < counts[:, None]) & live, 0.0, float("-inf")).float()
-    by_nprobe, worst = {}, 0.0
+    probed, q = {}, None
     for nprobe in KERNEL_NPROBES:
         sims = torch.rand((b, kk), generator=gen, device=dev)
-        probed = torch.topk(sims, nprobe, dim=-1).indices.to(torch.int32)
-        qt, gcl, qidx, _ = gs.build_groups(probed, kk)
-        q = torch.randn((b, d), generator=gen, device=dev)
-        q = q / q.norm(dim=-1, keepdim=True)
-        qg, qsum = q.bfloat16()[qidx], q.sum(-1)[qidx]
-        args = (qg, qsum, gcl, codes, a, bv, bias, 128)
-        out, bmax = gs.grouped_scores(*args, True)
-        torch.cuda.synchronize()
-        ref, _ = gs.grouped_scores_ref(*args, False)
-        finite = torch.isfinite(ref)
-        if not torch.equal(torch.isfinite(out), finite):
-            raise AssertionError(f"nprobe={nprobe}: -inf pattern differs from plain")
-        err = float((out[finite] - ref[finite]).abs().max())
-        if err > KERNEL_ATOL:
-            raise AssertionError(f"nprobe={nprobe}: max |kernel - plain| {err} > {KERNEL_ATOL}")
-        own = out.view(out.shape[0], qt, cap // 128, 128).amax(-1)
-        if not torch.equal(bmax, own):
-            raise AssertionError(f"nprobe={nprobe}: block maxima differ from the scores' own")
-        ms = median_ms(torch, lambda: gs.grouped_scores(*args, True))
-        plain_ms = median_ms(torch, lambda: gs.grouped_scores_ref(*args, True))
-        g = int(gcl.numel())
-        # this run's data: the codes and sidecars of the probed clusters
-        # read once, the group queries read, the scores and maxima written;
-        # b * nprobe (query, cluster) pairs of cap x d bf16 products
-        probed_k = int(torch.unique(gcl).numel())
-        moved = (probed_k * cap * (d + 12) + g * qt * (2 * d + 4) + 4 * g
-                 + out.numel() * 4 + bmax.numel() * 4)
-        bnd = bound(moved, 2 * b * nprobe * cap * d, PEAK_BF16_FLOPS)
-        by_nprobe[nprobe] = {
-            "G": g, "QT": qt, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "code_GB_per_s": g * cap * d / ms / 1e6, **bnd, "share": bnd["bound_ms"] / ms,
-        }
-        worst = max(worst, err)
-        log(f"kernel nprobe={nprobe}: G={g} QT={qt} max_abs_err={err:.3g} "
-            f"bmax exact; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
-            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), share "
-            f"{bnd['bound_ms'] / ms:.3f} (median of 20, {smi})")
+        probed[nprobe] = torch.topk(sims, nprobe, dim=-1).indices.to(torch.int32)
+        # one query set serves every nprobe (the draw keeps the generator's
+        # sequence of the runs before this kernel took `counts`)
+        qd = torch.randn((b, d), generator=gen, device=dev)
+        q = qd if q is None else q
+    q = q / q.norm(dim=-1, keepdim=True)
+    by_nprobe = scan_timing(torch, dev, smi, "synthetic store",
+                            (codes, a, bv, bias, counts.to(torch.int32)), q, probed)
     del codes, a, bv, bias
     torch.cuda.empty_cache()
     main = by_nprobe[8]
@@ -331,14 +483,16 @@ def phase_kernel(torch, dev, smi: str) -> dict:
         "route": "cuda",
         "source": "vectorsearch_tpu_torch/csrc/grouped_scan.cu",
         "replaces": "vectorsearch_tpu/kernels/pallas_scan.py:131",
-        "max_abs_err": worst,
+        "max_abs_err": max(worst, *(r["max_abs_err"] for r in by_nprobe.values())),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "share": main["share"],
-        "library_ms": None,  # no one PyTorch call computes this function
-        "ms_at": "nprobe=8, B=512, K=995, cap=3072, D=768",
+        "library_ms": main["library_ms"],
+        "library_call": "torch.bmm of the bf16 group rows by their buckets' codes "
+                        "widened to bf16, product only",
+        "ms_at": f"nprobe=8, B={b}, K={kk}, cap={cap}, D={d}, synthetic store",
         "by_nprobe": by_nprobe,
     }
 
@@ -551,6 +705,26 @@ def phase_flat_kernels(torch, dev, smi: str) -> list:
                 r.update(bound(moved + q_bytes, 2 * N_QUERIES * n * DIM,
                                PEAK_INT8_OPS if name == "flat_bands_s8" else PEAK_BF16_FLOPS))
                 r["share"] = r["bound_ms"] / r["ms"]
+                # the library yardstick, product only (no sidecars, no band
+                # maxima): one call on operands made ready outside the timing
+                try:
+                    if name == "flat_bands_s8":
+                        r["library_call"] = ("torch._int_mm of the s8 queries by the "
+                                             "codes^T, product only")
+                        codes_t = corpus[0].T
+                        r["library_ms"] = median_ms(torch, lambda: torch._int_mm(qc, codes_t), 5)
+                    else:
+                        r["library_call"] = ("torch.matmul of the bf16 queries by the codes "
+                                             "widened to bf16, transposed, product only")
+                        codes_t = corpus[0].bfloat16().T
+                        r["library_ms"] = median_ms(torch, lambda: q_bf16 @ codes_t, 5)
+                except RuntimeError as e:  # out of memory, or a shape the call refuses
+                    r["library_ms"], r["library_note"] = None, str(e)[:200]
+                codes_t = None
+                torch.cuda.empty_cache()
+                lib = (f"{r['library_ms']:.3f} ms" if r["library_ms"] is not None
+                       else f"none ({r['library_note']})")
+                log(f"{name} N={n} D={DIM} B={N_QUERIES}: library {lib} ({r['library_call']})")
                 log(f"{name} N={n} D={DIM} B={N_QUERIES}: kernel {r['ms']:.3f} ms vs plain "
                     f"{r['plain_ms']:.3f} ms (median of 20 / 5, {smi}), "
                     f"{r['TOP_per_s']:.1f} TOP/s, {r['GB_per_s']:.1f} GB/s, bound "
@@ -568,20 +742,24 @@ def phase_flat_kernels(torch, dev, smi: str) -> list:
          "replaces": f"vectorsearch_tpu/kernels/pallas_flat.py:{line}",
          "max_abs_err": max(r["max_abs_err"] for r in res[name].values()),
          "ms": res[name][FLAT_SHAPES[0]]["ms"], "plain_ms": res[name][FLAT_SHAPES[0]]["plain_ms"],
-         **{f: res[name][FLAT_SHAPES[0]][f] for f in ("bound_ms", "bound_by", "share")},
-         "library_ms": None,  # no one PyTorch call computes this function
+         **{f: res[name][FLAT_SHAPES[0]][f]
+            for f in ("bound_ms", "bound_by", "share", "library_ms", "library_call")},
          "ms_at": at, "by_n": res[name]}
         for name, line in (("flat_bands_s8", 85), ("flat_bands_bf16", 54))
     ]
 
 
-def phase_index(torch, dev, n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> dict:
+def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> dict:
     """bench.py's corpus through the port's build and search. The packed
-    corpus, the queries and the truth go on to phase_flat."""
+    corpus, the queries and the truth go on to phase_flat; the scan kernel
+    is timed on the built index's own store under "scan" (those launches
+    are taken out of the phase's count)."""
     from vectorsearch_tpu_torch.build import build_centroids
     from vectorsearch_tpu_torch.device import check_exact_f32
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.index import IVFIndex
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
 
     t0 = time.perf_counter()
     data = make_corpus(n, dim, k_gen)
@@ -633,6 +811,23 @@ def phase_index(torch, dev, n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> d
         log(f"search nprobe={nprobe}: recall@10 {recalls[nprobe]:.4f}, "
             f"{qps[nprobe]:.0f} QPS (B={n_queries}, host clock, end to end)")
 
+    # the scan kernel on this index's store, the groups from the real probe
+    # of the queries: what the searches above launched
+    launches_before = gs.LAUNCHES
+    qn_dev = cosine.l2_normalize(torch.from_numpy(queries).to(dev))
+    scan = scan_timing(
+        torch, dev, smi, f"index store K={ivf.k_clusters} cap={ivf.cap}",
+        (ivf.buckets.codes, *ivf.folded, ivf.counts_dev), qn_dev,
+        {p: gs.probe(qn_dev, ivf.centroids_n, p) for p in KERNEL_NPROBES
+         if p <= ivf.k_clusters})
+    wall_ms = {p: n_queries / q * 1e3 for p, q in qps.items()}
+    profile = profile_search(torch, ivf, queries, wall_ms, smi) if dev.type == "cuda" else {}
+    gs.LAUNCHES = launches_before
+    fill = float(ivf.counts.sum()) / (ivf.k_clusters * ivf.cap)
+    log(f"index store: {ivf.k_clusters} x {ivf.cap} slots, {fill:.3f} of them below their "
+        f"cluster's count; folded sidecar rows "
+        f"{sum(t.numel() * 4 for t in ivf.folded) / 2**20:.1f} MiB on {smi}")
+
     # 10,000 inserts: each new row is its own top-1
     m = 10_000
     new = make_corpus(m, dim, 64, seed=7)
@@ -663,7 +858,51 @@ def phase_index(torch, dev, n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> d
         "k": ivf.k_clusters, "cap": ivf.cap, "self_top1": self_top1,
         "deleted_returned": returned, "n_live": ivf.n_live,
         "expected_live": n + m - gone.size, "flat_inputs": (packed, queries, truth),
+        "scan": scan, "search_profile": profile,
     }
+
+
+# device time of a search by kind of kernel: the first name part that
+# matches, in this order (torch.profiler's kernel names)
+SEARCH_KERNEL_KINDS = (
+    ("scan kernel", ("grouped_scores",)),
+    ("memcpy", ("Memcpy", "Memset")),
+    ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
+    ("top-k/sort", ("topk", "TopK", "sort", "Sort", "radix", "bitonic")),
+    ("gather", ("gather", "index", "Index", "scatter")),
+)
+
+
+def profile_search(torch, ivf, queries, wall_ms, smi, reps=5) -> dict:
+    """`reps` B=512 searches per nprobe under torch.profiler: device time a
+    search summed by kind of kernel (CUDA rows only) and, against the
+    unprofiled wall `wall_ms[nprobe]` (the profiler slows the host), the
+    share of a search during which the card is busy."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for nprobe in NPROBES:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                ivf.search(queries, k=TOPK, nprobe=nprobe, refine=REFINE)
+            torch.cuda.synchronize()
+        kinds = {kind: 0.0 for kind, _ in SEARCH_KERNEL_KINDS}
+        kinds["elementwise and other"] = 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            kind = next((kind for kind, parts in SEARCH_KERNEL_KINDS
+                         if any(p in e.key for p in parts)), "elementwise and other")
+            kinds[kind] += e.self_device_time_total / 1e3 / reps
+        device = sum(kinds.values())
+        out[nprobe] = {"wall_ms": wall_ms[nprobe], "device_ms": device,
+                       "busy_share": device / wall_ms[nprobe], "by_kind_ms": kinds}
+        log(f"search profile nprobe={nprobe}: wall {wall_ms[nprobe]:.4f} ms a B={queries.shape[0]} "
+            f"search (unprofiled, host clock), device {device:.4f} ms, busy share "
+            f"{device / wall_ms[nprobe]:.2f}; " + "; ".join(
+                f"{kind} {ms:.4f}" for kind, ms in kinds.items()) + f" ({smi})")
+    return out
 
 
 def phase_flat(torch, dev, packed, queries, truth) -> dict:
@@ -1241,7 +1480,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
-    phase_build()
+    ptxas = phase_build()
     entries = [phase_kernel(torch, dev, smi), *phase_kmeans_kernels(torch, dev, smi),
                *phase_flat_kernels(torch, dev, smi)]
 
@@ -1260,7 +1499,17 @@ def main() -> int:
         return out
 
     launches = {}
-    idx = run("index", lambda: phase_index(torch, dev))
+    idx = run("index", lambda: phase_index(torch, dev, smi))
+    # the scan kernel's row: its time where the main path launches it, on the
+    # built index's store; the synthetic store's times stay beside it
+    scan = idx.pop("scan")
+    entries[0].update({f: scan[8][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "share", "library_ms")})
+    entries[0].update({
+        "ms_at": f"nprobe=8, B={N_QUERIES}, the 1M index's store K={idx['k']} "
+                 f"cap={idx['cap']}, D={DIM}",
+        "by_nprobe_index_store": scan, "ptxas": ptxas["grouped_scores"],
+        "ptxas_warnings": ptxas["grouped_scores_warnings"]})
     flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
     eng = run("engine", lambda: phase_engine(torch, dev))
     srv = run("server", lambda: phase_server(torch, dev, smi))

@@ -385,6 +385,28 @@ def test_body_over_limit_is_413(monkeypatch, port_server):
     conn.close()
 
 
+def test_body_over_limit_with_a_long_tail_reads_the_413(monkeypatch, port_server):
+    """A client that goes on sending after the limit was passed (a 1 MB
+    tail) still reads the 413, every time: the server half-closes and
+    drains before it closes, so the kernel sends no reset. A malformed
+    chunk size with a tail reads its 400 the same way."""
+    monkeypatch.setattr(port_http, "MAX_BODY", 1024)
+    tail = b"y" * (1 << 20)
+    for _ in range(50):
+        conn = http.client.HTTPConnection("127.0.0.1", port_server, timeout=30)
+        conn.request("POST", "/api/upload", body=iter([b"x" * 700] * 3 + [tail]),
+                     encode_chunked=True, headers={"Transfer-Encoding": "chunked"})
+        r = conn.getresponse()
+        assert r.status == 413 and "error" in json.loads(r.read())
+        assert r.getheader("Connection") == "close"
+        conn.close()
+    for _ in range(10):
+        with socket.create_connection(("127.0.0.1", port_server), timeout=30) as s:
+            s.sendall(b"POST /api/upload HTTP/1.1\r\nHost: t\r\n"
+                      b"Transfer-Encoding: chunked\r\n\r\nzz\r\n" + tail)
+            assert s.makefile("rb").readline().startswith(b"HTTP/1.1 400 ")
+
+
 def test_keep_alive_serves_two_requests_on_one_connection(port_server):
     conn = http.client.HTTPConnection("127.0.0.1", port_server, timeout=30)
     conn.request("POST", "/api/upload", body=json.dumps(

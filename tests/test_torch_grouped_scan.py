@@ -176,3 +176,75 @@ def test_group_build_covers_every_pair():
         qidx.numpy()[g, slot], np.repeat(np.arange(37), 5)
     )
 
+
+
+def _kernel_inputs(counts, seed, g=7, qt=8, d=32, tomb=0.15):
+    """Seeded numpy inputs of the scan kernel: bias -inf at tombstones and
+    at every slot at or past its cluster's count."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int32)
+    kk, cap = len(counts), 128
+    codes = rng.integers(-128, 128, size=(kk, cap, d), dtype=np.int8)
+    a = rng.random((kk, cap), dtype=np.float32) * 0.01
+    bv = rng.random((kk, cap), dtype=np.float32) * 0.01
+    live = (np.arange(cap)[None] < counts[:, None]) & (rng.random((kk, cap)) > tomb)
+    bias = np.where(live, 0.0, -np.inf).astype(np.float32)
+    q = rng.normal(size=(g, qt, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    qg = torch.from_numpy(q).bfloat16()
+    gcl = rng.integers(0, kk, size=g).astype(np.int32)
+    gcl[: min(g, kk)] = np.arange(min(g, kk))  # every cluster probed
+    return qg, q.sum(-1), gcl, counts, codes, a, bv, bias
+
+
+@pytest.mark.parametrize("counts", [
+    (128, 0, 70, 1), (0, 0, 0), (128, 128), (64, 65, 127, 100, 3)],
+    ids=["full-empty-ragged", "all-empty", "all-full", "ragged"])
+@pytest.mark.parametrize("bs", [64, 128])
+def test_plain_kernel_with_counts_is_the_same_function(counts, bs):
+    """grouped_scores (on the CPU: its plain version) with `counts` gives
+    what the formula gives without it, in float64 numpy, on seeded inputs
+    with tombstones: scores, -inf pattern and block maxima."""
+    qg, qsum, gcl, cnt, codes, a, bv, bias = _kernel_inputs(counts, seed=len(counts) + bs)
+    out, bmax = grouped_scan.grouped_scores(
+        qg, torch.from_numpy(qsum), torch.from_numpy(gcl), torch.from_numpy(cnt),
+        torch.from_numpy(codes), torch.from_numpy(a), torch.from_numpy(bv),
+        torch.from_numpy(bias), bs, True)
+    dots = np.einsum("gid,grd->gir", qg.double().numpy(), codes[gcl].astype(np.float64))
+    want = dots * a[gcl][:, None] + qsum[:, :, None] * bv[gcl][:, None] + bias[gcl][:, None]
+    dead = np.isneginf(want)
+    np.testing.assert_array_equal(np.isneginf(out.numpy()), dead)
+    assert np.isfinite(out.numpy()[~dead]).all()
+    np.testing.assert_allclose(out.numpy()[~dead], want[~dead], atol=1e-5, rtol=0)
+    g, qt, cap = out.shape
+    assert torch.equal(bmax, out.view(g, qt, cap // bs, bs).amax(-1))
+    # every slot at or past its cluster's count scores -inf
+    past = np.arange(cap)[None] >= cnt[gcl][:, None]
+    assert dead[np.broadcast_to(past[:, None, :], dead.shape)].all()
+
+
+def test_plain_kernel_refuses_a_live_slot_past_counts():
+    """The kernel reads nothing at or past counts[c], so a finite bias
+    there would make it another function than the plain one: the plain
+    version asserts the precondition on the CPU."""
+    qg, qsum, gcl, cnt, codes, a, bv, bias = _kernel_inputs((128, 70, 0), seed=9)
+    bias[1, 100] = 0.0
+    with pytest.raises(AssertionError, match="counts"):
+        grouped_scan.grouped_scores(
+            qg, torch.from_numpy(qsum), torch.from_numpy(gcl), torch.from_numpy(cnt),
+            torch.from_numpy(codes), torch.from_numpy(a), torch.from_numpy(bv),
+            torch.from_numpy(bias), 128, False)
+
+
+def test_scan_with_folded_rows_from_the_caller_equals_folding_here():
+    """grouped_scan takes the folded sidecar rows from its caller, or folds
+    on its own: the same result either way."""
+    _, pt, v = make_pair(n_per=30, k=24, d=64)
+    q = v[::37][:12] + 0.01
+    own = port_scan(pt, q, 3, 10, "flat")
+    folded = grouped_scan.fold_sidecars(pt.buckets, pt.counts_dev, pt.bucket_mask)
+    s, gslot = grouped_scan.ivf_scan_grouped(
+        torch.from_numpy(q), pt.centroids_n, pt.buckets, pt.counts_dev,
+        pt.bucket_mask, nprobe=3, k=10, epilogue="flat", folded=folded)
+    np.testing.assert_array_equal(own[0], s.numpy())
+    np.testing.assert_array_equal(own[1], gslot.numpy())

@@ -142,6 +142,31 @@ def test_http11_pipe_still_serves(h2_server):
     assert json.loads(body) == {"category_names": ["c"]}
 
 
+def test_http11_pipe_body_over_limit_with_a_long_tail_reads_the_413(
+        h2_server, monkeypatch):
+    """HTTP/1.1 over TLS reaches the app through a byte pipe: after the
+    app's 413 the pipe goes on taking what the client sends, so the client
+    reads the answer although it is still sending a 1 MB tail."""
+    import http.client
+    import ssl
+
+    from vectorsearch_tpu_torch.api import http as port_http
+
+    monkeypatch.setattr(port_http, "MAX_BODY", 1024)
+    ctx = ssl.create_default_context()
+    ctx.check_hostname, ctx.verify_mode = False, ssl.CERT_NONE
+    ctx.set_alpn_protocols(["http/1.1"])
+    port = int(h2_server.rsplit(":", 1)[1])
+    for _ in range(10):
+        conn = http.client.HTTPSConnection("127.0.0.1", port, timeout=30, context=ctx)
+        conn.request("POST", "/api/upload",
+                     body=iter([b"x" * 700] * 3 + [b"y" * (1 << 20)]),
+                     encode_chunked=True, headers={"Transfer-Encoding": "chunked"})
+        r = conn.getresponse()
+        assert r.status == 413 and "error" in json.loads(r.read())
+        conn.close()
+
+
 def test_h2_concurrent_streams(h2_server):
     import concurrent.futures as cf
 

@@ -83,6 +83,7 @@ def _args(device):
         torch.zeros((g, qt, d), dtype=torch.bfloat16, device=device),
         torch.zeros((g, qt), device=device),
         torch.zeros((g,), dtype=torch.int32, device=device),
+        torch.full((kk,), cap, dtype=torch.int32, device=device),
         torch.zeros((kk, cap, d), dtype=torch.int8, device=device),
         *(torch.zeros((kk, cap), device=device) for _ in range(3)),
     )

@@ -142,6 +142,106 @@ def test_old_snapshot_unchanged_after_insert_and_remove():
     np.testing.assert_array_equal(before[1], after[1])
 
 
+def _count_folds(monkeypatch):
+    """Count the calls of fold_sidecars from here on."""
+    from vectorsearch_tpu_torch.kernels import grouped_scan
+
+    calls = []
+    real = grouped_scan.fold_sidecars
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(grouped_scan, "fold_sidecars", counted)
+    return calls
+
+
+@pytest.mark.parametrize("refine", [0, 16])
+def test_sidecars_fold_once_per_index(monkeypatch, refine):
+    """The kernel's per-slot rows are folded at an index's first grouped
+    search and kept: later searches, at any nprobe, fold nothing."""
+    _, pt, v = pair()
+    calls = _count_folds(monkeypatch)
+    first = pt.search(v[:8], k=5, nprobe=2, refine=refine)
+    assert len(calls) == 1
+    for nprobe in (1, 2, 4):
+        pt.search(v[:16], k=5, nprobe=nprobe, refine=refine)
+    again = pt.search(v[:8], k=5, nprobe=2, refine=refine)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(first[0], again[0])
+    np.testing.assert_array_equal(first[1], again[1])
+    pt.search(v[:8], k=5, nprobe=-1, refine=refine)  # the exhaustive scan folds nothing
+    assert len(calls) == 1
+
+
+def test_writes_fold_anew_and_searches_see_the_new_store(monkeypatch):
+    """insert and remove_ids return new instances, which fold their own
+    store: an inserted row is found, a deleted id never returns, and the
+    index they came from keeps its rows and its answers."""
+    _, pt, v = pair()
+    calls = _count_folds(monkeypatch)
+    before = pt.search(v[:8], k=5, nprobe=3, refine=16)
+    assert len(calls) == 1
+    new = (v[:30] * 1.01 + 0.02).astype(np.float32)
+    new_ids = np.arange(9001, 9031)
+    grown = pt.insert(layout.pack_float(new), new_ids)
+    assert "folded" not in grown.__dict__
+    _, got = grown.search(new, k=1, nprobe=3, refine=8)
+    np.testing.assert_array_equal(got[:, 0], new_ids)
+    assert len(calls) == 2
+    gone = np.concatenate([new_ids[:10], before[1][:, 0]])
+    shrunk = grown.remove_ids(gone)
+    for nprobe in (1, 3):
+        _, got = shrunk.search(np.concatenate([new, v[:8]]), k=5, nprobe=nprobe, refine=16)
+        assert not np.isin(got, gone).any()
+    assert len(calls) == 3
+    # the folded rows follow the store: -inf exactly at dead slots
+    col = torch.arange(shrunk.cap)
+    live = (col[None] < shrunk.counts_dev[:, None]) & shrunk.bucket_mask
+    assert torch.equal(torch.isneginf(shrunk.folded[2]), ~live)
+    after = pt.search(v[:8], k=5, nprobe=3, refine=16)
+    np.testing.assert_array_equal(before[1], after[1])
+    assert len(calls) == 3
+
+
+def _owning(pt):
+    """The same index on tensors that own their storage (tensors made from
+    numpy arrays share the arrays' memory, which cannot be released)."""
+    from dataclasses import replace
+
+    from vectorsearch_tpu_torch.quant.layout import PackedVectors
+
+    spill = replace(pt.spill, packed=PackedVectors(*[t.clone() for t in pt.spill.packed]),
+                    mask=pt.spill.mask.clone())
+    return replace(pt, buckets=PackedVectors(*[t.clone() for t in pt.buckets]),
+                   bucket_mask=pt.bucket_mask.clone(), counts_dev=pt.counts_dev.clone(),
+                   spill=spill)
+
+
+def test_release_device_frees_the_folded_rows():
+    _, pt, v = pair()
+    pt = _owning(pt)
+    assert "folded" not in pt.__dict__
+    bare = pt.hbm_bytes
+    pt.search(v[:4], k=3, nprobe=2)
+    folded = pt.folded
+    assert [t.shape for t in folded] == [pt.bucket_mask.shape] * 3
+    assert pt.hbm_bytes == bare + 12 * pt.k_clusters * pt.cap
+    pt.release_device()
+    assert all(t.untyped_storage().size() == 0 for t in folded)
+    assert "folded" not in pt.__dict__
+    assert pt.buckets.codes.untyped_storage().size() == 0
+
+
+def test_release_device_before_any_search():
+    _, pt, _ = pair()
+    pt = _owning(pt)
+    pt.release_device()
+    assert "folded" not in pt.__dict__
+    assert pt.buckets.codes.untyped_storage().size() == 0
+
+
 def test_flat_index_matches_jax():
     _, v = blobs(n_per=30, k=5)
     packed = layout.pack_float(v)

@@ -45,49 +45,84 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, g, qt, kk, cap, d, seed):
+def _inputs(device, g, qt, kk, cap, d, seed, counts=None):
+    """qg, qsum, gcl, counts, codes, a, bv, bias: seeded, a tenth of the
+    slots tombstoned, bias -inf at and past each cluster's count (`counts`
+    is cycled over the clusters; random in [0, cap] when None)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    codes = torch.randint(-127, 128, (kk, cap, d), generator=gen, device=device,
+    codes = torch.randint(-128, 128, (kk, cap, d), generator=gen, device=device,
                           dtype=torch.int8)
     a, bv = (torch.rand((kk, cap), generator=gen, device=device) * 0.01
              for _ in range(2))
-    bias = torch.where(torch.rand((kk, cap), generator=gen, device=device) > 0.1,
-                       0.0, float("-inf")).float()
-    qg = torch.randn((g, qt, d), generator=gen, device=device).bfloat16()
-    qsum = torch.randn((g, qt), generator=gen, device=device)
+    if counts is None:
+        cnt = torch.randint(0, cap + 1, (kk,), generator=gen, device=device).to(torch.int32)
+    else:
+        cnt = torch.tensor([counts[i % len(counts)] for i in range(kk)],
+                           dtype=torch.int32, device=device)
+    live = torch.rand((kk, cap), generator=gen, device=device) > 0.1
+    col = torch.arange(cap, device=device)
+    bias = torch.where(live & (col[None] < cnt[:, None]), 0.0, float("-inf")).float()
+    q = torch.randn((g, qt, d), generator=gen, device=device)
+    q = q / q.norm(dim=-1, keepdim=True)
     gcl = torch.randint(0, kk, (g,), generator=gen, device=device, dtype=torch.int32)
-    return [qg, qsum, gcl, codes, a, bv, bias]
+    gcl[: min(g, kk)] = torch.arange(min(g, kk), dtype=torch.int32, device=device)
+    return [q.bfloat16(), q.sum(-1), gcl, cnt, codes, a, bv, bias]
 
 
 @pytest.mark.parametrize(
-    "qt,want_bmax,cap,d",
-    [(8, False, 256, 128), (16, True, 256, 128), (32, True, 256, 128),
-     (16, True, 192, 80)],  # cap % 128 != 0: 64-column blocks
+    "qt,want_bmax,cap,d,counts",
+    [(8, False, 256, 128, None), (16, True, 256, 128, None), (32, True, 256, 128, None),
+     (16, True, 192, 80, None),  # cap % 128 != 0: 64-column blocks
+     (8, True, 512, 128, (0, 512, 100, 129, 70, 448, 64)),  # empty, full, ragged
+     (32, True, 384, 128, (127, 128, 129, 384, 1, 0, 383)),
+     (16, True, 192, 80, (192, 100, 128, 65, 0, 1, 191)),
+     (8, True, 64, 128, (64, 0, 33, 1, 63, 32, 2)),
+     (32, True, 1024, 768, (1000, 300, 1024, 0, 5, 129, 640)),  # the served width
+     (32, True, 256, 3072, (256, 100, 0, 129, 1, 255, 128)),  # query rows streamed
+     (8, True, 256, 3072, (200, 256, 129, 0, 1, 64, 255))],
 )
-def test_kernel_matches_plain(cuda, qt, want_bmax, cap, d):
+def test_kernel_matches_plain(cuda, qt, want_bmax, cap, d, counts):
     g, kk = 19, 7
     bs = 128 if cap % 128 == 0 else 64
-    args = _inputs(cuda, g, qt, kk, cap, d, seed=qt + d)
+    args = _inputs(cuda, g, qt, kk, cap, d, seed=qt + d, counts=counts)
     before = grouped_scan.LAUNCHES
     out, bmax = grouped_scan.grouped_scores(*args, bs, want_bmax)
     ref, _ = grouped_scan.grouped_scores_ref(*args, bs, False)
     torch.cuda.synchronize()
     assert grouped_scan.LAUNCHES == before + 1
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    past = torch.arange(cap, device=cuda)[None] >= args[3][args[2].long()][:, None]
+    assert torch.isneginf(out[past[:, None, :].expand_as(out)]).all()
     if want_bmax:
         assert torch.equal(bmax, out.view(g, qt, cap // bs, bs).amax(-1))
     else:
         assert bmax is None
 
 
+@pytest.mark.parametrize("g", [1, 8, 200, 400, 1700])
+def test_kernel_matches_plain_at_every_block_shape(cuda, g):
+    """The launch gives a block 1, 2, 4 or 8 tiles by the number of groups:
+    the same scores at each."""
+    args = _inputs(cuda, g, 8, 40, 3072, 64, seed=g)
+    out, bmax = grouped_scan.grouped_scores(*args, 128, True)
+    ref, _ = grouped_scan.grouped_scores_ref(*args, 128, False)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(bmax, out.view(g, 8, 24, 128).amax(-1))
+
+
 def test_group_without_cluster_scores_nothing(cuda):
     """A group whose cluster id lies outside [0, K) reads no codes and
     scores -inf everywhere."""
-    args = _inputs(cuda, 3, 8, 4, 128, 64, seed=5)
+    args = _inputs(cuda, 3, 8, 4, 128, 64, seed=5, counts=(128,))
     args[2][1] = -1
+    args[2][2] = 4
     out, bmax = grouped_scan.grouped_scores(*args, 128, True)
     torch.cuda.synchronize()
-    assert torch.isneginf(out[1]).all() and torch.isneginf(bmax[1]).all()
+    for lost in (1, 2):
+        assert torch.isneginf(out[lost]).all() and torch.isneginf(bmax[lost]).all()
     assert torch.isfinite(out[0]).any()
 
 
@@ -149,16 +184,23 @@ def test_no_library_raises(cuda, monkeypatch):
 def test_rejects_bad_input(cuda):
     args = _inputs(cuda, 2, 8, 3, 64, 16, 0)
     bad = list(args)
-    bad[3] = bad[3].float()  # codes must be int8
+    bad[4] = bad[4].float()  # codes must be int8
     with pytest.raises(ValueError, match="codes"):
         grouped_scan.grouped_scores(*bad, 64, False)
+    for wrong in (args[3].long(), args[3][:2], args[3].float()):  # type, shape
+        bad = list(args)
+        bad[3] = wrong
+        with pytest.raises(ValueError, match="counts"):
+            grouped_scan.grouped_scores(*bad, 64, False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        grouped_scan.grouped_scores(*args[:3], args[3].cpu(), *args[4:], 64, False)
     bad = list(args)
     bad[0] = torch.zeros((2, 12, 16), dtype=torch.bfloat16, device=cuda)
     bad[1] = torch.zeros((2, 12), device=cuda)
     with pytest.raises(ValueError, match="QT"):
         grouped_scan.grouped_scores(*bad, 64, False)
     with pytest.raises(ValueError, match="CUDA device"):
-        grouped_scan.grouped_scores(*args[:3], args[3].cpu(), *args[4:], 64, False)
+        grouped_scan.grouped_scores(*args[:4], args[4].cpu(), *args[5:], 64, False)
 
 
 # ---------------------------------------------------------------- k-means

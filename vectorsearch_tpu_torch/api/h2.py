@@ -466,7 +466,9 @@ class H2Connection:
             self.tasks.pop(st.sid, None)
 
 
-async def _pipe(reader, writer):
+async def _pipe(reader, writer, close=True):
+    """Copy reader to writer until EOF; then close the writer unless the
+    caller keeps it."""
     try:
         while True:
             data = await reader.read(65536)
@@ -477,10 +479,11 @@ async def _pipe(reader, writer):
     except (ConnectionError, asyncio.CancelledError):
         pass
     finally:
-        try:
-            writer.close()
-        except Exception:
-            pass
+        if close:
+            try:
+                writer.close()
+            except Exception:
+                pass
 
 
 class TLSMux:
@@ -520,7 +523,19 @@ async def serve_tls_mux(host, port, ssl_context, upstream: tuple[str, int]):
             except OSError:
                 writer.close()
                 return
-            await asyncio.gather(_pipe(reader, up_w), _pipe(up_r, writer))
+            # when the app ends its answers (it half-closes and lingers
+            # after a 413 or a 400), what the client still sends goes on to
+            # the app for as long as it lingers: TLS has no half-close, and
+            # closing here at once would cost the client the answer
+            to_app = asyncio.ensure_future(_pipe(reader, up_w))
+            from_app = asyncio.ensure_future(_pipe(up_r, writer, close=False))
+            try:
+                await asyncio.wait({from_app})
+                await asyncio.wait({to_app}, timeout=http.LINGER_S)
+            finally:
+                to_app.cancel()
+                from_app.cancel()
+                writer.close()
         finally:
             mux.conns.discard(task)
 

@@ -21,7 +21,9 @@ bad JSON or a non-object body, 500 with {"error": ...}, and a client that
 goes away mid-request cancels the handler, which sets the engine's cancel
 event so the engine never dispatches for a dead client. Engine calls are
 synchronous (device-bound), so they run in the default thread executor.
-A body over MAX_BODY is refused with 413.
+A body over MAX_BODY is refused with 413; after it, and after the 400 of
+a malformed message, the connection is closed lingeringly (`_linger`), so
+a client that is still sending the body reads the answer.
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ MAX_BODY = 256 * 1024 * 1024  # the JAX app's client_max_size
 MAX_DECOMPRESSED = 1 << 30
 MAX_HEAD = 64 * 1024  # request or status line plus headers
 KEEPALIVE_S = 75.0  # idle time before a kept-alive connection is closed
+# lingering close after an error answered with the body half read: the rest
+# is read and dropped for at most this long and this many bytes, so that a
+# client still sending reads the answer and not a reset
+LINGER_S = 2.0
+LINGER_BYTES = 4 * MAX_BODY
 _READ = 1 << 16
 
 WASM_HEADERS = {
@@ -593,9 +600,11 @@ class HTTPServer:
                     raise BodyTooLarge()
         except BodyTooLarge:
             await _write(writer, _json_error(413, "Request body too large"), False, False)
+            await _linger(conn, writer)
             return False
         except (BadMessage, ValueError):
             await _write(writer, Response(400, b"Bad Request", "text/plain"), False, False)
+            await _linger(conn, writer)
             return False
         keep = _keep_alive(version, headers)
         request = Request(method, unquote(target.split("?", 1)[0]), version,
@@ -636,6 +645,27 @@ def _keep_alive(version: str, headers: dict) -> bool:
     if version == "HTTP/1.0":
         return "keep-alive" in conn
     return "close" not in conn
+
+
+async def _linger(conn: BufferedReader, writer) -> None:
+    """Lingering close: the answer is flushed and the write side half
+    closed, then the client's input is read and dropped until it ends, or
+    LINGER_S or LINGER_BYTES have passed. Closing with input unread makes
+    the kernel reset the connection, and a client still sending would lose
+    the answer it was just sent."""
+    try:
+        if writer.can_write_eof():
+            writer.write_eof()
+        conn.buf.clear()
+        left = LINGER_BYTES
+        async with asyncio.timeout(LINGER_S):
+            while left > 0:
+                data = await conn.reader.read(_READ)
+                if not data:
+                    break
+                left -= len(data)
+    except (TimeoutError, OSError):
+        pass
 
 
 async def _watch_eof(conn: BufferedReader) -> None:

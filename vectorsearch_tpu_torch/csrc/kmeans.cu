@@ -95,12 +95,11 @@
 // given stream and returns cudaGetLastError() (or the error that stopped
 // it before the launch).
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -114,74 +113,7 @@ constexpr int A_CN_STAGE = A_CENT * A_SLICE * 2;  // 32 KB
 constexpr int A_MAX_STAGES = 4;
 constexpr int A_CONSUMER_WARPS = 8;
 constexpr int A_THREADS = (A_CONSUMER_WARPS + 4) * 32;  // + the producer WG
-constexpr int A_SMEM_MAX = 232448;      // a block's limit on sm_90
 constexpr int A_SMEM_SLACK = 1024 + 128;  // 1024-byte alignment, barriers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 2D TMA load of the box at (x, y) (x innermost) into shared memory;
-// completion is counted in bytes on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major bf16 tile written by TMA with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// k-step j of the 64-dim slice starts 32 * j bytes in
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
 
 // pins the accumulators in program order around the asynchronous wgmma
 __device__ __forceinline__ void fence_acc(float (&d)[128]) {
@@ -238,12 +170,6 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t s) {
   const float x1 = __fsub_rn(__uint_as_float(f1), 8388736.0f);
   asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(out) : "r"(__float_as_uint(x0)), "r"(__float_as_uint(x1)));
   return out;
-}
-
-__device__ __forceinline__ uint32_t lds_u32(uint32_t saddr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(saddr));
-  return v;
 }
 
 // the A fragments of one 64-dim slice (4 k-steps) of this thread's two
@@ -461,49 +387,6 @@ kmeans_assign_kernel(const __grid_constant__ CUtensorMap map_codes,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, reached through the runtime so
-// that the library links against no libcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a 2D row-major [rows, cols] map with boxes of [box_rows, box_cols]
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-              const void* base, uint64_t rows, uint64_t cols,
-              uint32_t box_rows, uint32_t box_cols, CUtensorMapSwizzle swz) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // -------------------------------------------------------------- accumulate
 
 constexpr int S_DIMS = 128;   // dims per block, 4 per lane
@@ -592,7 +475,7 @@ extern "C" int vs_kmeans_assign(const void* codes, const void* scale,
                                 int N, int D, int K, void* stream) {
   if (N <= 0 || D <= 0 || K <= 0 || D % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int budget = A_SMEM_MAX - A_SMEM_SLACK;
+  const int budget = SMEM_MAX - A_SMEM_SLACK;
   const int codes_bytes = A_ROWS * D;
   const bool resident = codes_bytes + 2 * A_CN_STAGE <= budget;
   const int stage_bytes = resident ? A_CN_STAGE : A_CN_STAGE + 4 * A_CHUNK;

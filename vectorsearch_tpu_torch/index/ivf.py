@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field, replace
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -91,12 +92,12 @@ def _ivf_scan(queries, centroids_n, buckets, counts, bucket_mask, nprobe, k):
 
 def _scan_refined(
     queries, centroids_n, buckets, counts, bucket_mask, nprobe, k_coarse, k,
-    epilogue=None,
+    epilogue=None, folded=None,
 ):
     """Coarse grouped scan + exact-f32 refine of its top-k_coarse."""
     scores, gslot = grouped_scan.ivf_scan_grouped(
         queries, centroids_n, buckets, counts, bucket_mask,
-        nprobe=nprobe, k=k_coarse, epilogue=epilogue,
+        nprobe=nprobe, k=k_coarse, epilogue=epilogue, folded=folded,
     )
     return cosine.rescore_topk(queries, _flat_view(buckets), scores, gslot, k)
 
@@ -196,6 +197,16 @@ class IVFIndex:
     @property
     def n_live(self) -> int:
         return self.live_count + self.spill.live
+
+    @cached_property
+    def folded(self):
+        """The scan kernel's per-slot rows (a, bv, bias) of this store
+        (grouped_scan.fold_sidecars), 12 bytes a slot on the device, folded
+        at the first grouped search and kept. The instance is frozen and
+        every write returns a new one (`replace`), which folds anew."""
+        return grouped_scan.fold_sidecars(
+            self.buckets, self.counts_dev, self.bucket_mask
+        )
 
     # ---- construction ----
 
@@ -356,13 +367,14 @@ class IVFIndex:
                 return _scan_refined(
                     qs, self.centroids_n, self.buckets, self.counts_dev,
                     self.bucket_mask, nprobe=nprobe, k_coarse=k_coarse, k=k,
-                    epilogue=epi,
+                    epilogue=epi, folded=self.folded,
                 )
             # always the grouped scan: no switch routes a CUDA tensor
             # around the kernel (CPU tensors take its plain version)
             return grouped_scan.ivf_scan_grouped(
                 qs, self.centroids_n, self.buckets, self.counts_dev,
                 self.bucket_mask, nprobe=nprobe, k=k_coarse, epilogue=epi,
+                folded=self.folded,
             )
 
         def dispatch(bm, epi):
@@ -629,10 +641,12 @@ class IVFIndex:
 
     @property
     def hbm_bytes(self) -> int:
-        """Device footprint: packed buckets (codes + sidecars + mask) plus
-        the spill tail, which grows without bound on a frozen index."""
+        """Device footprint: packed buckets (codes + sidecars + mask), the
+        folded sidecar rows once a search has made them, plus the spill
+        tail, which grows without bound on a frozen index."""
         kk, cap, d = self.buckets.codes.shape
-        return kk * cap * (d + 13) + self.spill.hbm_bytes
+        per_slot = d + 13 + (12 if "folded" in self.__dict__ else 0)
+        return kk * cap * per_slot + self.spill.hbm_bytes
 
     def compact(
         self, headroom: float = 1.25, hbm_budget: int | None = None
@@ -648,11 +662,13 @@ class IVFIndex:
 
     def release_device(self) -> None:
         """Free this index's device buffers (bucket store, mask, counts,
-        spill tail) now, without waiting for the last reference to go:
-        the frozen-store re-pack must free the old store before the new
-        layout uploads. The index is unusable afterwards."""
+        the folded sidecar rows if a search made them, spill tail) now,
+        without waiting for the last reference to go: the frozen-store
+        re-pack must free the old store before the new layout uploads.
+        The index is unusable afterwards."""
         for t in (
             *self.buckets, self.bucket_mask, self.counts_dev,
+            *self.__dict__.pop("folded", ()),
             *self.spill.packed, self.spill.mask,
         ):
             t.untyped_storage().resize_(0)

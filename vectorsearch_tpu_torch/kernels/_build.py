@@ -99,10 +99,10 @@ def load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.vs_abi_version.argtypes = []
             lib.vs_abi_version.restype = i32
-            if lib.vs_abi_version() != 3:
+            if lib.vs_abi_version() != 4:
                 raise RuntimeError("kernel library ABI mismatch")
             for name, argtypes in (
-                ("vs_grouped_scores", [ptr] * 9 + [i32] * 6 + [ptr]),
+                ("vs_grouped_scores", [ptr] * 10 + [i32] * 6 + [ptr]),
                 ("vs_kmeans_assign", [ptr] * 7 + [i32] * 3 + [ptr]),
                 ("vs_kmeans_accumulate", [ptr] * 7 + [i32] * 2 + [ptr]),
                 ("vs_flat_bands_s8", [ptr] * 8 + [i32] * 3 + [ptr]),

@@ -81,13 +81,21 @@ def group_qt(p: int, kk: int) -> int:
 # ---------------------------------------------------------------- kernel
 
 
-def grouped_scores_ref(qg, qsum, gcl, codes, a, bv, bias, bs, want_bmax):
+def grouped_scores_ref(qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax):
     """Plain PyTorch version of the kernel, in full f32 (TF32 off): the
     codes and the bf16 query rows are widened to f32, whose products are
     exact. Chunked over groups: a gather of codes[gcl] at G~2000,
-    cap=3072, D=768 would be 4.7 GB as int8."""
+    cap=3072, D=768 would be 4.7 GB as int8.
+
+    It scores every slot and needs `counts` for nothing; on CPU tensors it
+    asserts the kernel's precondition on it (see grouped_scores)."""
     g, qt, d = qg.shape
     kk, cap, _ = codes.shape
+    if counts.device.type == "cpu":
+        past = torch.arange(cap)[None, :] >= counts[:, None]
+        assert bool(torch.isneginf(bias[past]).all()), (
+            "grouped_scores: bias must be -inf at every slot at or past counts"
+        )
     out = torch.empty((g, qt, cap), dtype=torch.float32, device=qg.device)
     step = max(1, (256 << 20) // max(1, cap * d * 4))
     check_exact_f32(qg)
@@ -105,24 +113,37 @@ def grouped_scores_ref(qg, qsum, gcl, codes, a, bv, bias, bs, want_bmax):
     return out, bmax
 
 
-def grouped_scores(qg, qsum, gcl, codes, a, bv, bias, bs: int, want_bmax: bool):
+def grouped_scores(
+    qg, qsum, gcl, counts, codes, a, bv, bias, bs: int, want_bmax: bool
+):
     """Score every group's QT query rows against its cluster's bucket.
 
-    qg bf16 [G, QT, D]; qsum f32 [G, QT]; gcl i32 [G]; codes i8 [K, cap, D];
-    a, bv, bias f32 [K, cap]. Returns (scores f32 [G, QT, cap], bmax f32
-    [G, QT, cap // bs] or None). On CPU tensors this is
-    grouped_scores_ref; on CUDA tensors it launches the kernel or raises.
+    qg bf16 [G, QT, D]; qsum f32 [G, QT]; gcl i32 [G]; counts i32 [K];
+    codes i8 [K, cap, D]; a, bv, bias f32 [K, cap]. Returns (scores f32
+    [G, QT, cap], bmax f32 [G, QT, cap // bs] or None). On CPU tensors this
+    is grouped_scores_ref; on CUDA tensors it launches the kernel or raises.
+
+    Precondition: the sidecars are finite except that bias[c, r] is -inf at
+    every slot r >= counts[c] (and at tombstones), which fold_sidecars
+    guarantees. The kernel reads no code and no sidecar of a 128-column
+    tile that starts at or past counts[c] and writes -inf there, which
+    under the precondition is what the plain version computes.
     """
     global LAUNCHES
-    dev = _build.launch_device("grouped_scores", (qg, qsum, gcl, codes, a, bv, bias))
+    dev = _build.launch_device(
+        "grouped_scores", (qg, qsum, gcl, counts, codes, a, bv, bias)
+    )
     if dev is None:
-        return grouped_scores_ref(qg, qsum, gcl, codes, a, bv, bias, bs, want_bmax)
+        return grouped_scores_ref(
+            qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax
+        )
     g, qt, d = qg.shape
     kk, cap, dc = codes.shape
     _build.check_args("grouped_scores", {
         "qg": (qg, torch.bfloat16, (g, qt, d)),
         "qsum": (qsum, torch.float32, (g, qt)),
         "gcl": (gcl, torch.int32, (g,)),
+        "counts": (counts, torch.int32, (kk,)),
         "codes": (codes, torch.int8, (kk, cap, d)),
         "a": (a, torch.float32, (kk, cap)),
         "bv": (bv, torch.float32, (kk, cap)),
@@ -146,9 +167,9 @@ def grouped_scores(qg, qsum, gcl, codes, a, bv, bias, bs: int, want_bmax: bool):
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.vs_grouped_scores(
-            qg.data_ptr(), qsum.data_ptr(), gcl.data_ptr(), codes.data_ptr(),
-            a.data_ptr(), bv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            bmax.data_ptr() if bmax is not None else None,
+            qg.data_ptr(), qsum.data_ptr(), gcl.data_ptr(), counts.data_ptr(),
+            codes.data_ptr(), a.data_ptr(), bv.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), bmax.data_ptr() if bmax is not None else None,
             g, qt, d, kk, cap, bs, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -195,7 +216,8 @@ def build_groups(probed: torch.Tensor, kk: int):
 def fold_sidecars(buckets: PackedVectors, counts, bucket_mask):
     """Fold the affine sidecars and the padding/tombstone mask into the
     kernel's per-slot rows (pallas_scan.py:445-450): a = scale * inv_norm,
-    bv = offset * inv_norm, bias = 0 live / -inf dead."""
+    bv = offset * inv_norm, bias = 0 live / -inf dead (a tombstone, or a
+    slot at or past its cluster's count). 12 bytes a slot."""
     kk, cap = bucket_mask.shape
     col = torch.arange(cap, device=bucket_mask.device)
     valid = (col[None, :] < counts[:, None]) & bucket_mask
@@ -218,12 +240,14 @@ def probe(qn: torch.Tensor, centroids_n: torch.Tensor, nprobe: int):
 
 def ivf_scan_grouped(
     queries, centroids_n, buckets: PackedVectors, counts, bucket_mask,
-    nprobe: int, k: int, epilogue: str | None = None,
+    nprobe: int, k: int, epilogue: str | None = None, folded=None,
 ):
     """Probe + grouped scan + exact epilogue. Returns (scores f32 [B, k],
     global_slot i64 [B, k]) with global_slot = cluster * cap + slot; -inf
     rows carry the slot of a masked candidate (callers null them by
-    score). Counterpart of pallas_scan.ivf_scan_pallas."""
+    score). `folded` is fold_sidecars' result for this store where the
+    caller keeps it (an index does, once per instance); without it the
+    store is folded here. Counterpart of pallas_scan.ivf_scan_pallas."""
     epilogue = _default_epilogue() if epilogue is None else epilogue
     kk = buckets.codes.shape[0]
     nprobe = max(1, min(nprobe, kk))
@@ -231,16 +255,17 @@ def ivf_scan_grouped(
     probed = probe(qn, centroids_n, nprobe)
     return grouped_scan(
         qn, qn.sum(dim=-1), buckets, counts, bucket_mask, probed, k,
-        epilogue=epilogue,
+        epilogue=epilogue, folded=folded,
     )
 
 
 def grouped_scan(
     qn, qsum, buckets: PackedVectors, counts, bucket_mask, probed, k: int,
-    epilogue: str = "auto",
+    epilogue: str = "auto", folded=None,
 ):
     """Group build, kernel and epilogue over an explicit probe list
-    (pallas_scan._grouped_scan without probe_valid)."""
+    (pallas_scan._grouped_scan without probe_valid). `folded`: see
+    ivf_scan_grouped."""
     b, nprobe = probed.shape
     kk, cap, _ = buckets.codes.shape
     if epilogue == "auto":
@@ -251,7 +276,9 @@ def grouped_scan(
     qt, gcl, qidx, pair_slot = build_groups(probed, kk)
     qg = qn.bfloat16()[qidx]  # [G, QT, D]
     qsum_g = qsum[qidx]  # [G, QT]
-    a, bv, bias = fold_sidecars(buckets, counts, bucket_mask)
+    if folded is None:
+        folded = fold_sidecars(buckets, counts, bucket_mask)
+    a, bv, bias = folded
 
     # block size of the blockexact maxima: 128 in production (cap is a
     # multiple of constants.BUCKET_ROUND = 1024); 64 serves geometries
@@ -270,7 +297,8 @@ def grouped_scan(
     use_blocks = epilogue == "blockexact" and not bx_fallback
 
     out, bmax = grouped_scores(
-        qg, qsum_g, gcl, buckets.codes, a, bv, bias, bs, use_blocks
+        qg, qsum_g, gcl, counts.to(torch.int32), buckets.codes, a, bv, bias,
+        bs, use_blocks,
     )
     if not use_blocks:
         return _flat_epilogue(out, pair_slot, probed, k, k_eff)
