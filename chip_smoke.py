@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the last line is printed):
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: nvcc builds every kernel of the path from vectorsearch_tpu_torch/csrc,
      one nvcc per source, all started together; beside it, ptxas's report
-     (`-Xptxas -v`) of the assign and the grouped-scan kernels;
+     (`-Xptxas -v`) of the assign, the grouped-scan and the flat band
+     kernels (a spill or a C75xx warning in the flat kernels fails the run);
   3. kernels against plain, with median CUDA-event times of both:
      a. the grouped bucket-scan kernel: its edge cases (a cluster with
         count 0, with count = cap, counts off the 128- and 64-column grid,
@@ -26,12 +27,18 @@ Phases (any failure exits non-zero before the last line is printed):
         codes by cn_bf16^T (the product alone) as the library yardstick;
         then assign alone at N=1M over K=256..4096 and at N=196,608 over
         K=2048..16,384, with the line t = a + b K through each N's times;
-     c. the s8 and bf16 flat band kernels on 1M x 768 clustered packed
-        rows with tombstones, B=512, at N=1M and at N=1M-300 (a partial
-        last tile): s8 band maxima bit-equal, bf16 within 1e-4 with the
-        same -inf pattern; TOP/s and GB/s derived from the kernel time;
-        beside each, torch._int_mm / torch.matmul of the queries by the
-        codes (the product alone);
+     c. the s8 and bf16 flat band kernels: their edge cases (N from 1 to
+        131,073 off the 1024- and 128-row grids, B from 1 to 512 around the
+        query-block sizes, D 16 to 3072 with one that needs padding, a
+        wholly dead tile, an all-dead corpus, two launches bit-equal), then
+        1M x 768 clustered packed rows with tombstones, B=512, at N=1M and
+        at N=1M-300 (a partial last tile): s8 band maxima bit-equal, bf16
+        within 1e-4 with the same -inf pattern; the time of 10 launches
+        back to back and of one launch with its wrapper, TOP/s and GB/s,
+        the bound and which of bytes and operations binds; beside each,
+        torch._int_mm / torch.matmul of the queries by the codes (the
+        product alone); then each kernel under other schedules (one tile a
+        block, 64 queries a block, shallower rings);
   4. index at the bench's scale: bench.py's 1M x 768 clustered corpus and
      512 queries (recipe copied), exact-f32 ground truth, the k-means build
      with bench.py's arguments, IVFIndex.build, then IVFIndex.search at
@@ -133,6 +140,21 @@ BUILD_N, BUILD_K = 10_000_000, 4096
 # (whole tiles, and a partial last tile)
 FLAT_KBANDS = 64
 FLAT_SHAPES = (N, N - 300)
+# the band kernels' edge cases: every N with every B, the widths cycled
+# over them (D=100 is padded to 112 by the wrappers; 1024 and 3072 take 64
+# queries a block or stream the query rows where 128 do not fit)
+FLAT_EDGE_N = (1, 127, 1023, 1024, 1025, 131_073)
+FLAT_EDGE_B = (1, 63, 64, 65, 129, 512)
+FLAT_EDGE_D = (16, 100, 128, 768, 1024, 3072)
+# other schedules of the band kernels, timed beside the launch rule's:
+# (label, tile lanes or None for one tile a block, ring stages, queries a
+# block), 0 for the rule's choice
+FLAT_SCHEDULES = (
+    ("one tile a block", None, 0, 0),
+    ("64 queries a block", 0, 0, 64),
+    ("4 stages", 0, 4, 0),
+    ("2 stages", 0, 2, 0),
+)
 # the server phase: documents uploaded over HTTP (SERVER_UPLOAD a request),
 # documents sampled for the self-searches, single searches timed from one
 # client, then SERVER_PER_CLIENT from each of SERVER_CLIENTS at once, batched
@@ -260,12 +282,17 @@ def phase_env(torch) -> str:
     return smi
 
 
+# the sources whose ptxas report is printed, each with the kernel named in it
+PTXAS_REPORTS = (("kmeans.cu", "kmeans_assign"), ("grouped_scan.cu", "grouped_scores"),
+                 ("flat.cu", "flat_bands"))
+
+
 def phase_build() -> dict:
     """The kernel library, built as the wrappers build it; beside it, one
-    more compile each of csrc/kmeans.cu and csrc/grouped_scan.cu with
-    `-Xptxas -v` for ptxas's report of the assign and the grouped-scan
-    kernels (registers, shared memory, spills) and any warning that wgmma
-    was serialized (C7510-C7520)."""
+    more compile of each source of PTXAS_REPORTS with `-Xptxas -v` for
+    ptxas's report of its kernel (registers, shared memory, spills) and any
+    warning that wgmma was serialized (C7510-C7520). The flat band kernels
+    must show no spill and no such warning."""
     from vectorsearch_tpu_torch.kernels import _build
 
     reports = {}
@@ -275,7 +302,7 @@ def phase_build() -> dict:
                 [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-c",
                  os.path.join(_build._CSRC, src), "-o", os.path.join(tmp, src + ".o")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("kmeans.cu", "grouped_scan.cu")
+            for src, _ in PTXAS_REPORTS
         }
         t0 = time.perf_counter()
         path = _build.load()._name
@@ -286,7 +313,7 @@ def phase_build() -> dict:
                 raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{reports[src]}")
     log(f"build: {os.path.relpath(path)} in {secs:.2f} s")
     out = {"build_s": secs}
-    for src, kernel in (("kmeans.cu", "kmeans_assign"), ("grouped_scan.cu", "grouped_scores")):
+    for src, kernel in PTXAS_REPORTS:
         lines = reports[src].splitlines()
         out[kernel] = []
         for i, line in enumerate(lines):
@@ -296,6 +323,10 @@ def phase_build() -> dict:
         warned = [ln.strip() for ln in lines if "C75" in ln or "warning" in ln.lower()]
         out[kernel + "_warnings"] = warned
         log(f"ptxas {src}: {len(warned)} warnings" + "".join("\n  " + w for w in warned[:20]))
+    spilled = [r for r in out["flat_bands"] if "0 bytes spill stores, 0 bytes spill loads" not in r]
+    if spilled or out["flat_bands_warnings"] or not out["flat_bands"]:
+        raise AssertionError(f"flat.cu: ptxas reports spills or warnings: "
+                             f"{spilled} {out['flat_bands_warnings']}")
     return out
 
 
@@ -651,15 +682,82 @@ def assign_sweep(torch, dev, full, smi: str) -> dict:
     return out
 
 
-def phase_flat_kernels(torch, dev, smi: str) -> list:
-    """flat_bands_s8 and flat_bands_bf16 against their plain versions on
-    clustered packed rows made on the card, a hundredth of them dead, with
-    B queries near corpus rows, at each of FLAT_SHAPES; timed at the
-    first."""
+def check_bands(torch, name, fn, ref, args, label):
+    """One band kernel against its plain version on `args`: the same -inf
+    pattern, s8 bit-equal, bf16 within KERNEL_ATOL, and a second launch
+    bit-equal to the first. Returns max |err| over the finite bands."""
+    out = fn(*args)
+    again = fn(*args)
+    want = ref(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isneginf(out), torch.isneginf(want)):
+        raise AssertionError(f"{name} {label}: -inf pattern differs from plain")
+    if torch.isnan(out).any():
+        raise AssertionError(f"{name} {label}: NaN bands")
+    fin = torch.isfinite(want)
+    err = float((out[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if name == "flat_bands_s8" and not torch.equal(out, want):
+        raise AssertionError(f"{name} {label}: not bit-equal to plain (max err {err})")
+    if err > KERNEL_ATOL:
+        raise AssertionError(f"{name} {label}: max |kernel - plain| {err} > {KERNEL_ATOL}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {label}: two launches differ")
+    return err
+
+
+def flat_edge_cases(torch, dev) -> dict:
+    """Both band kernels against plain over FLAT_EDGE_N x FLAT_EDGE_B with
+    the widths of FLAT_EDGE_D cycled over them, a tenth of the rows dead;
+    then a wholly dead tile and an all-dead corpus. Returns the worst |err|
+    per kernel."""
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import flat as tf
+
+    cases = [(n, b, FLAT_EDGE_D[(i + k) % len(FLAT_EDGE_D)], None)
+             for i, n in enumerate(FLAT_EDGE_N) for k, b in enumerate(FLAT_EDGE_B)]
+    cases += [(3100, 70, 768, (1024, 2048)), (1500, 130, 128, (0, 1500))]
+    worst = {"flat_bands_s8": 0.0, "flat_bands_bf16": 0.0}
+    for n, b, d, dead in cases:
+        gen = torch.Generator(device=dev).manual_seed(n + 7 * b + d)
+        codes = torch.randint(-128, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+        a = torch.rand((n,), generator=gen, device=dev) * 0.01
+        bv = torch.rand((n,), generator=gen, device=dev) * 0.01 - 0.005
+        gone = torch.rand((n,), generator=gen, device=dev) < 0.1
+        if dead is not None:
+            row = torch.arange(n, device=dev)
+            gone = (row >= dead[0]) & (row < dead[1])
+        bias = torch.where(gone, float("-inf"), 0.0)
+        qn = cosine.l2_normalize(torch.randn((b, d), generator=gen, device=dev))
+        qc, sq, qsum = cosine.quantize_queries(qn)
+        corpus = (codes, a, bv, bias)
+        errs = {}
+        for name, fn, ref, args in (
+            ("flat_bands_s8", tf.flat_bands_s8, tf.flat_bands_s8_ref, (qc, sq, qsum, *corpus)),
+            ("flat_bands_bf16", tf.flat_bands_bf16, tf.flat_bands_bf16_ref,
+             (qn.bfloat16(), qsum, *corpus)),
+        ):
+            errs[name] = check_bands(torch, name, fn, ref, args, f"edge N={n} B={b} D={d}")
+            worst[name] = max(worst[name], errs[name])
+        if dead is not None:
+            lo, hi = dead[0] // tf.TILE_N * tf.BAND_LANES, dead[1] // tf.TILE_N * tf.BAND_LANES
+            if not torch.isneginf(tf.flat_bands_s8(qc, sq, qsum, *corpus)[:, lo:hi]).all():
+                raise AssertionError(f"flat edge N={n}: a dead tile scored")
+        log(f"flat edge N={n} B={b} D={d}" + (f" rows {dead} dead" if dead else "")
+            + f": s8 bit-equal, bf16 max_abs_err={errs['flat_bands_bf16']:.3g}, -inf "
+              f"pattern equal, two launches bit-equal")
+    return worst
+
+
+def phase_flat_kernels(torch, dev, smi: str, ptxas: dict) -> list:
+    """flat_bands_s8 and flat_bands_bf16 against their plain versions: the
+    edge cases, then clustered packed rows made on the card, a hundredth of
+    them dead, with B queries near corpus rows, at each of FLAT_SHAPES;
+    timed at the first, under the launch rule and under FLAT_SCHEDULES."""
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.kernels import cosine
     from vectorsearch_tpu_torch.kernels import flat as tf
 
+    worst = flat_edge_cases(torch, dev)
     n_max = max(FLAT_SHAPES)
     parts = [p for _, p in packed_on_card(torch, dev, n_max, DIM, K_GEN, seed=2)]
     full = layout.PackedVectors(*[torch.cat(a) for a in zip(*parts)])
@@ -682,28 +780,22 @@ def phase_flat_kernels(torch, dev, smi: str) -> list:
             ("flat_bands_bf16", tf.flat_bands_bf16, tf.flat_bands_bf16_ref,
              (q_bf16, qsum, *corpus)),
         ):
-            out = fn(*args)
-            want = ref(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(torch.isneginf(out), torch.isneginf(want)):
-                raise AssertionError(f"{name} N={n}: -inf pattern differs from plain")
-            fin = torch.isfinite(want)
-            err = float((out[fin] - want[fin]).abs().max())
-            if name == "flat_bands_s8" and not torch.equal(out, want):
-                raise AssertionError(f"{name} N={n}: not bit-equal to plain (max err {err})")
-            if err > KERNEL_ATOL:
-                raise AssertionError(f"{name} N={n}: max |kernel - plain| {err} > {KERNEL_ATOL}")
+            err = check_bands(torch, name, fn, ref, args, f"N={n}")
             r = {"max_abs_err": err}
             if n == FLAT_SHAPES[0]:
-                r["ms"] = median_ms(torch, lambda: fn(*args))
+                r["ms"] = median_ms(torch, lambda: fn(*args), launches=10)
+                r["single_launch_ms"] = median_ms(torch, lambda: fn(*args))
                 r["plain_ms"] = median_ms(torch, lambda: ref(*args), 5)
                 r["TOP_per_s"] = 2 * N_QUERIES * n * DIM / r["ms"] / 1e9
+                # the codes and sidecars read once, the query rows and their
+                # sidecars read once, every band written once
                 tiles = -(-n // tf.TILE_N)
                 moved = n * DIM + 12 * n + N_QUERIES * tiles * tf.BAND_LANES * 4
                 r["GB_per_s"] = moved / r["ms"] / 1e6
                 q_bytes = N_QUERIES * (DIM + 8 if name == "flat_bands_s8" else 2 * DIM + 4)
                 r.update(bound(moved + q_bytes, 2 * N_QUERIES * n * DIM,
                                PEAK_INT8_OPS if name == "flat_bands_s8" else PEAK_BF16_FLOPS))
+                r["bound_by_bytes_ms"] = (moved + q_bytes) / PEAK_BYTES_PER_S * 1e3
                 r["share"] = r["bound_ms"] / r["ms"]
                 # the library yardstick, product only (no sidecars, no band
                 # maxima): one call on operands made ready outside the timing
@@ -722,29 +814,49 @@ def phase_flat_kernels(torch, dev, smi: str) -> list:
                     r["library_ms"], r["library_note"] = None, str(e)[:200]
                 codes_t = None
                 torch.cuda.empty_cache()
+                # the same launch under other schedules (the kernel's own
+                # time, 10 launches back to back)
+                r["schedules"] = {}
+                for label, lanes, stages, qblock in FLAT_SCHEDULES:
+                    tf.SCHEDULE = (tiles if lanes is None else lanes, stages, qblock)
+                    try:
+                        r["schedules"][label] = median_ms(torch, lambda: fn(*args), launches=10)
+                    except RuntimeError:  # a ring deeper than this kernel's room
+                        r["schedules"][label] = None
+                    finally:
+                        tf.SCHEDULE = (0, 0, 0)
                 lib = (f"{r['library_ms']:.3f} ms" if r["library_ms"] is not None
                        else f"none ({r['library_note']})")
                 log(f"{name} N={n} D={DIM} B={N_QUERIES}: library {lib} ({r['library_call']})")
-                log(f"{name} N={n} D={DIM} B={N_QUERIES}: kernel {r['ms']:.3f} ms vs plain "
-                    f"{r['plain_ms']:.3f} ms (median of 20 / 5, {smi}), "
-                    f"{r['TOP_per_s']:.1f} TOP/s, {r['GB_per_s']:.1f} GB/s, bound "
-                    f"{r['bound_ms']:.3f} ms ({r['bound_by']}), share {r['share']:.3f}, "
-                    f"max |err| {err:.3g}")
+                log(f"{name} N={n} D={DIM} B={N_QUERIES}: kernel {r['ms']:.3f} ms (10 launches "
+                    f"back to back; one launch with the wrapper's host side "
+                    f"{r['single_launch_ms']:.3f} ms) vs plain {r['plain_ms']:.3f} ms (medians "
+                    f"of 20 / 20 / 5, {smi}), {r['TOP_per_s']:.1f} TOP/s, "
+                    f"{r['GB_per_s']:.1f} GB/s, bound {r['bound_ms']:.3f} ms "
+                    f"({r['bound_by']} bind; by bytes {r['bound_by_bytes_ms']:.3f} ms), share "
+                    f"{r['share']:.3f}, max |err| {err:.3g}")
+                log(f"{name} N={n} under other schedules (ms, 10 launches back to back; the "
+                    f"launch rule {r['ms']:.3f}): " + "; ".join(
+                        f"{label} " + ("refused" if ms is None else f"{ms:.3f}")
+                        for label, ms in r["schedules"].items()))
             else:
-                log(f"{name} N={n}: max |kernel - plain| {err:.3g}, -inf pattern equal")
+                log(f"{name} N={n}: max |kernel - plain| {err:.3g}, -inf pattern equal, "
+                    f"two launches bit-equal")
             res[name][n] = r
-            del out, want
     del full, a, bv, bias
     torch.cuda.empty_cache()
     at = f"B={N_QUERIES}, N={FLAT_SHAPES[0]}, D={DIM}"
     return [
         {"name": name, "route": "cuda", "source": "vectorsearch_tpu_torch/csrc/flat.cu",
          "replaces": f"vectorsearch_tpu/kernels/pallas_flat.py:{line}",
-         "max_abs_err": max(r["max_abs_err"] for r in res[name].values()),
+         "max_abs_err": max(worst[name], *(r["max_abs_err"] for r in res[name].values())),
          "ms": res[name][FLAT_SHAPES[0]]["ms"], "plain_ms": res[name][FLAT_SHAPES[0]]["plain_ms"],
          **{f: res[name][FLAT_SHAPES[0]][f]
-            for f in ("bound_ms", "bound_by", "share", "library_ms", "library_call")},
-         "ms_at": at, "by_n": res[name]}
+            for f in ("single_launch_ms", "bound_ms", "bound_by", "share", "library_ms",
+                      "library_call", "schedules")},
+         "ms_at": at + ", 10 launches back to back", "by_n": res[name],
+         "ptxas": [r for r in ptxas["flat_bands"] if f"ILb{int(name == 'flat_bands_s8')}E" in r],
+         "ptxas_warnings": ptxas["flat_bands_warnings"]}
         for name, line in (("flat_bands_s8", 85), ("flat_bands_bf16", 54))
     ]
 
@@ -1482,7 +1594,7 @@ def main() -> int:
     smi = phase_env(torch)
     ptxas = phase_build()
     entries = [phase_kernel(torch, dev, smi), *phase_kmeans_kernels(torch, dev, smi),
-               *phase_flat_kernels(torch, dev, smi)]
+               *phase_flat_kernels(torch, dev, smi, ptxas)]
 
     def run(phase, fn):
         """fn() with every launch count set to 0 just before and read just

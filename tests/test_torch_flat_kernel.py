@@ -214,3 +214,101 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert torch.equal(tf.flat_bands_bf16(q, qsum, *corpus),
                        tf.flat_bands_bf16_ref(q, qsum, *corpus))
     assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == before
+
+
+# ------------------------------------------- plain band versions, edge shapes
+
+# (label, N, B, D, dead): dead is a fraction of random rows, or a (lo, hi)
+# range of dead rows
+EDGE_CASES = [
+    ("one row", 1, 1, 16, 0.0),
+    ("below one group", 127, 1, 128, 0.1),
+    ("one short of a tile", 1023, 3, 100, 0.1),
+    ("a whole tile", 1024, 2, 64, 0.1),
+    ("a tile and a row", 1025, 4, 16, 0.1),
+    ("off both grids", 2500, 5, 100, 0.1),
+    ("wide rows", 1300, 2, 3072, 0.1),
+    ("a dead tile", 3100, 3, 48, (1024, 2048)),
+    ("an all-dead corpus", 1500, 2, 32, (0, 1500)),
+]
+EDGES = pytest.mark.parametrize("case", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+
+
+def _edge_case(case):
+    _, n, b, d, dead = case
+    packed, qn, a, bv, bias = _band_case(b=b, n=n, d=d, seed=n + d)
+    if not isinstance(dead, float):
+        bias = np.zeros(n, np.float32)
+        bias[dead[0] : dead[1]] = -np.inf
+    elif dead == 0.0:
+        bias = np.zeros(n, np.float32)
+    return packed, qn, a, bv, bias
+
+
+@EDGES
+def test_plain_s8_bands_at_edge_shapes(case):
+    """Exact integer dots (int64), then the sidecars in f32 in the kernel's
+    order of roundings: bit-equal."""
+    packed, qn, a, bv, bias = _edge_case(case)
+    qc, sq, qsum = (t.numpy() for t in cosine.quantize_queries(torch.from_numpy(qn)))
+    dots = (qc.astype(np.int64) @ packed.codes.astype(np.int64).T).astype(np.float32)
+    want = _numpy_bands((sq[:, None] * a[None]) * dots + qsum[:, None] * bv[None] + bias[None])
+    got = tf.flat_bands_s8_ref(*map(torch.from_numpy, (qc, sq, qsum, packed.codes, a, bv, bias)))
+    assert got.shape == (case[2], -(-case[1] // 1024) * 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if not isinstance(case[4], float):
+        lo, hi = case[4][0] // 1024 * 128, case[4][1] // 1024 * 128
+        assert np.isneginf(got.numpy()[:, lo:hi]).all()
+
+
+@EDGES
+def test_plain_bf16_bands_at_edge_shapes(case):
+    """The formula in float64 on the same bf16-rounded queries: within 1e-4
+    (f32 sums in another order), the same -inf pattern."""
+    packed, qn, a, bv, bias = _edge_case(case)
+    q = torch.from_numpy(qn).bfloat16()
+    qsum = qn.sum(-1)
+    dots = q.double().numpy() @ packed.codes.astype(np.float64).T
+    want = _numpy_bands(a[None] * dots + qsum[:, None].astype(np.float64) * bv[None] + bias[None])
+    got = tf.flat_bands_bf16_ref(q, *map(torch.from_numpy, (qsum, packed.codes, a, bv, bias))).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 100, 104, 250])
+def test_zero_padded_dims_give_equal_bands(d):
+    """The wrappers pad D to a multiple of 16 with zero columns before a
+    launch: the s8 bands stay bit-equal, the bf16 bands within 1e-5 (the
+    f32 sums may be taken in another order)."""
+    packed, qn, a, bv, bias = _band_case(b=4, n=1100, d=d, seed=d)
+    corpus = [torch.from_numpy(x) for x in (a, bv, bias)]
+    codes = torch.from_numpy(packed.codes)
+    qc, sq, qsum = cosine.quantize_queries(torch.from_numpy(qn))
+    q = torch.from_numpy(qn).bfloat16()
+    codes_p, qc_p, q_p = (tf._pad_dims(t) for t in (codes, qc, q))
+    assert codes_p.shape[1] % 16 == 0 and codes_p.shape[1] - d < 16
+    assert (codes_p is codes) == (d % 16 == 0)
+    assert not codes_p[:, d:].any() and not q_p[:, d:].any()
+    assert torch.equal(tf.flat_bands_s8_ref(qc_p, sq, qsum, codes_p, *corpus),
+                       tf.flat_bands_s8_ref(qc, sq, qsum, codes, *corpus))
+    got = tf.flat_bands_bf16_ref(q_p, qsum, codes_p, *corpus)
+    want = tf.flat_bands_bf16_ref(q, qsum, codes, *corpus)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=ATOL, rtol=0)
+
+
+@VARIANTS
+def test_partial_last_tile_matches_jax(use_s8):
+    """N = 2300 (two tiles and a quarter, the last group 124 rows short) at
+    D = 64 with tombstones, rows past n_valid dead: the ids as sets, the
+    refined scores within 1e-5."""
+    rng = np.random.default_rng(7)
+    packed = layout.pack_float(rng.normal(size=(2300, 64)).astype(np.float32))
+    queries = rng.normal(size=(5, 64)).astype(np.float32)
+    mask = rng.random(2300) > 0.1
+    got = _port(queries, packed, 2250, 10, 64, use_s8, mask)
+    assert mask[got[1]].all() and (got[1] < 2250).all()
+    assert_hits_match(got, _jax(queries, packed, 2250, 10, 64, use_s8, mask))
+

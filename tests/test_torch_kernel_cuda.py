@@ -15,8 +15,9 @@ Tolerances, kernel vs plain:
   rtol 1e-5 / atol 1e-4 (f32 sums in another order); two launches give
   bit-identical sums;
 - flat bands: s8 bit-equal (exact integer dots, the plain version's
-  roundings); bf16 within atol 1e-4 (f32 sums in another order) with the
-  same -inf pattern.
+  roundings), also where |dot| passes 2^24; bf16 within atol 1e-4 (f32
+  sums in another order) with the same -inf pattern; the same under every
+  block and ring shape.
 """
 import functools
 import importlib
@@ -416,27 +417,105 @@ def _flat_args(device, n, d, b):
     return (qc, sq, qsum, *corpus), (qn.bfloat16(), qsum, *corpus)
 
 
-@pytest.mark.parametrize("b", [1, 8, 512])
-@pytest.mark.parametrize("n", [1, 1000, 5000, 65537])
-@pytest.mark.parametrize("d", [100, 768])
-@pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
-def test_flat_bands_match_plain(cuda, use_s8, d, n, b):
-    s8, bf16 = _flat_args(cuda, n, d, b)
-    before = (tf.S8_LAUNCHES, tf.BF16_LAUNCHES)
-    if use_s8:
-        out, ref = tf.flat_bands_s8(*s8), tf.flat_bands_s8_ref(*s8, chunk=8192)
-    else:
-        out, ref = tf.flat_bands_bf16(*bf16), tf.flat_bands_bf16_ref(*bf16, chunk=8192)
-    torch.cuda.synchronize()
-    assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == (before[0] + use_s8,
-                                                  before[1] + (not use_s8))
-    assert out.shape == (b, -(-n // 1024) * 128)
+def assert_bands_match(use_s8, out, ref):
+    """s8 bit-equal; bf16 within 1e-4 with the same -inf pattern."""
+    assert out.shape == ref.shape and not torch.isnan(out).any()
     if use_s8:
         assert torch.equal(out, ref)
     else:
         assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
         fin = torch.isfinite(ref)
         torch.testing.assert_close(out[fin], ref[fin], atol=1e-4, rtol=0)
+
+
+def _bands(use_s8, s8, bf16):
+    """(kernel bands, plain bands) of one variant."""
+    if use_s8:
+        return tf.flat_bands_s8(*s8), tf.flat_bands_s8_ref(*s8, chunk=8192)
+    return tf.flat_bands_bf16(*bf16), tf.flat_bands_bf16_ref(*bf16, chunk=8192)
+
+
+@pytest.mark.parametrize("b", [1, 63, 64, 65, 129, 512])
+@pytest.mark.parametrize("n", [1, 127, 1023, 1024, 1025, 65537])
+@pytest.mark.parametrize("d", [16, 100, 768])
+@pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
+def test_flat_bands_match_plain(cuda, use_s8, d, n, b):
+    """Corpus sizes off the 1024- and 128-row grids, batches around the
+    64- and 128-query blocks, a width that the wrapper pads (100)."""
+    s8, bf16 = _flat_args(cuda, n, d, b)
+    before = (tf.S8_LAUNCHES, tf.BF16_LAUNCHES)
+    out, ref = _bands(use_s8, s8, bf16)
+    torch.cuda.synchronize()
+    assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == (before[0] + use_s8,
+                                                  before[1] + (not use_s8))
+    assert out.shape == (b, -(-n // 1024) * 128)
+    assert_bands_match(use_s8, out, ref)
+
+
+@pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
+def test_flat_bands_131073_rows_twice(cuda, use_s8):
+    """128 tiles and one row at the served width and batch; two launches
+    bit-equal."""
+    s8, bf16 = _flat_args(cuda, 131_073, 768, 512)
+    out, ref = _bands(use_s8, s8, bf16)
+    again, _ = _bands(use_s8, s8, bf16)
+    torch.cuda.synchronize()
+    assert_bands_match(use_s8, out, ref)
+    assert torch.equal(out, again)
+
+
+# (D, B): the shapes the launch rule picks from. 128 resident queries (8
+# stages s8, 2 bf16 at D=768; 7 and 5 at D=128), 64 resident queries for a
+# small batch, 64 because 128 do not fit (bf16 D=1024, s8 D=3072), and query
+# rows streamed through the ring (bf16 D=3072 at both block sizes, s8 D=4096)
+BLOCK_SHAPES = [(128, 200), (768, 130), (768, 40), (1024, 200), (3072, 200), (3072, 40),
+                (4096, 130)]
+# (tile lanes, stages, queries a block): the rule, one block walking every
+# tile, one tile a block, forced block sizes and ring depths
+SCHEDULES = [(0, 0, 0), (1, 0, 0), (1000, 0, 0), (3, 2, 0), (0, 2, 64), (0, 0, 128),
+             (2, 3, 64)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("d,b", BLOCK_SHAPES)
+@pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
+def test_flat_bands_at_every_block_and_ring_shape(cuda, monkeypatch, use_s8, d, b, schedule):
+    """The same bands under every query-block size, residency and ring
+    depth the launch rule can pick, and under forced schedules (a ring
+    deeper than a shape has room for is refused, not shortened)."""
+    s8, bf16 = _flat_args(cuda, 5000, d, b)
+    monkeypatch.setattr(tf, "SCHEDULE", schedule)
+    try:
+        out, ref = _bands(use_s8, s8, bf16)
+    except RuntimeError as e:
+        assert schedule[1] > 2 and "cudaError 1" in str(e), e
+        return
+    torch.cuda.synchronize()
+    assert_bands_match(use_s8, out, ref)
+
+
+def test_flat_s8_worst_case_magnitude(cuda):
+    """Codes of -128 against query codes of +-127 at D=3072: |dot| reaches
+    127 * 128 * 3072 ~ 5e7, past 2^24, where int32 -> f32 rounds. Still
+    bit-equal to the plain version's exact integer dots."""
+    n, d, b = 2500, 3072, 70
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    codes = torch.full((n, d), -128, dtype=torch.int8, device=cuda)
+    codes[torch.rand((n,), generator=gen, device=cuda) < 0.5] = 127
+    codes[::7, ::5] = 3
+    qc = torch.full((b, d), 127, dtype=torch.int8, device=cuda)
+    qc[1::2] = -127
+    qc[2::3, ::11] = 126
+    sq = torch.rand((b,), generator=gen, device=cuda) * 1e-4
+    qsum = torch.randn((b,), generator=gen, device=cuda)
+    a, bv = (torch.rand((n,), generator=gen, device=cuda) * 0.01 for _ in range(2))
+    bias = torch.zeros((n,), device=cuda)
+    args = (qc, sq, qsum, codes, a, bv, bias)
+    dots = cosine._int_dots(qc, codes)
+    assert float(dots.abs().max()) > 2**24
+    out, ref = tf.flat_bands_s8(*args), tf.flat_bands_s8_ref(*args, chunk=8192)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("use_s8", [True, False], ids=["s8", "bf16"])
@@ -479,3 +558,17 @@ def test_flat_wrappers_refuse_bad_input(cuda):
         tf.flat_bands_bf16(bf16[0].float(), *bf16[1:])
     with pytest.raises(ValueError, match="contiguous"):
         tf.flat_bands_bf16(bf16[0], bf16[1], bf16[2].t().contiguous().t(), *bf16[3:])
+
+
+@pytest.mark.parametrize("schedule", [(0, 9, 0), (0, 1, 0), (-1, 0, 0), (0, 0, 96)])
+def test_flat_kernels_refuse_a_bad_schedule(cuda, monkeypatch, schedule):
+    """More stages than the ring may have, a ring of one, negative tile
+    lanes, a block size no kernel has: the launch fails, nothing runs."""
+    s8, bf16 = _flat_args(cuda, 1000, 128, 8)
+    monkeypatch.setattr(tf, "SCHEDULE", schedule)
+    before = (tf.S8_LAUNCHES, tf.BF16_LAUNCHES)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tf.flat_bands_s8(*s8)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tf.flat_bands_bf16(*bf16)
+    assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == before

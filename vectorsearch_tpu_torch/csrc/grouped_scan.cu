@@ -95,19 +95,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 }
 
-// two signed codes (bytes s and s + 1 of w, `sel` = 0x4140 | s | (s + 1) << 8)
-// -> a bf16x2, exactly. 0x4300 | (byte & 0x7f) is 128 + the low seven bits;
-// adding -128 (byte >= 0) or -256 (byte < 0) in bf16 gives the code, which
-// has at most 8 significant bits
-__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
-  uint32_t t, out;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(t) : "r"(w), "r"(0u), "r"(sel));
-  const uint32_t hi = (t & 0x007f007fu) | 0x43004300u;
-  const uint32_t lo = (t & 0x00800080u) ^ 0xC300C300u;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(out) : "r"(hi), "r"(lo));
-  return out;
-}
-
 // d[64 x N] (+)= a[64 x 16] (registers, bf16) x b[16 x N] (shared, bf16),
 // N = 8, 16 or 32: a thread holds N / 2 sums
 template <int N> struct Wgmma;
@@ -398,7 +385,7 @@ grouped_scores_kernel(const __grid_constant__ CUtensorMap map_codes,
 
 // the library's ABI version: bumped whenever an entry point of any source
 // under csrc/ is added or changes its arguments
-extern "C" int vs_abi_version() { return 4; }
+extern "C" int vs_abi_version() { return 5; }
 
 extern "C" int vs_grouped_scores(const void* qg, const void* qsum,
                                  const void* gcl, const void* counts,

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, 2D TMA loads and the tensor maps they read, wgmma's fences and
-// its descriptor of a 128-byte-swizzled K-major bf16 tile.
+// its descriptor of a 128-byte-swizzled K-major tile, and the exact int8 ->
+// bf16 widening of two codes at a time.
 
 #pragma once
 
@@ -60,9 +61,9 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of a K-major bf16 tile written by TMA with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// k-step j of the 64-dim slice starts 32 * j bytes in
+// wgmma descriptor of a K-major tile (bf16 or int8) written by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO);
+// the k-step j (16 bf16 or 32 int8 values) starts 32 * j bytes into the row
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
@@ -77,11 +78,28 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// all but the newest committed group are complete
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 __device__ __forceinline__ uint32_t lds_u32(uint32_t saddr) {
   uint32_t v;
   asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(saddr));
   return v;
+}
+
+// two signed codes (bytes s and s + 1 of w, `sel` = 0x4140 | s | (s + 1) << 8)
+// -> a bf16x2, exactly. 0x4300 | (byte & 0x7f) is 128 + the low seven bits;
+// adding -128 (byte >= 0) or -256 (byte < 0) in bf16 gives the code, which
+// has at most 8 significant bits
+__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
+  uint32_t t, out;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(t) : "r"(w), "r"(0u), "r"(sel));
+  const uint32_t hi = (t & 0x007f007fu) | 0x43004300u;
+  const uint32_t lo = (t & 0x00800080u) ^ 0xC300C300u;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(out) : "r"(hi), "r"(lo));
+  return out;
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -161,7 +161,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
 // two signed codes (bytes s and s + 1 of w) -> a bf16x2, exactly: x + 128
 // in the low mantissa of 2^23, less 2^23 + 128, is x in f32, and x has at
 // most 8 significant bits, so the top half of the f32 is x in bf16
-__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t s) {
+__device__ __forceinline__ uint32_t widen2_f32(uint32_t w, uint32_t s) {
   const uint32_t u = w ^ 0x80808080u;
   uint32_t f0, f1, out;
   asm("prmt.b32 %0, %1, %2, %3;" : "=r"(f0) : "r"(u), "r"(0x4B000000u), "r"(0x7440u | s));
@@ -189,10 +189,10 @@ __device__ __forceinline__ void widen_slice(uint32_t (&a)[4][4],
     const uint32_t w01 = lds_u32(c + 8);
     const uint32_t w10 = lds_u32(c + 8 * 16);
     const uint32_t w11 = lds_u32(c + 8 * 16 + 8);
-    a[kk][0] = widen2(w00, s) & keep;  // row r, dims 2q, 2q + 1
-    a[kk][1] = widen2(w10, s) & keep;  // row r + 8
-    a[kk][2] = widen2(w01, s) & keep;  // row r, dims 2q + 8, 2q + 9
-    a[kk][3] = widen2(w11, s) & keep;  // row r + 8
+    a[kk][0] = widen2_f32(w00, s) & keep;  // row r, dims 2q, 2q + 1
+    a[kk][1] = widen2_f32(w10, s) & keep;  // row r + 8
+    a[kk][2] = widen2_f32(w01, s) & keep;  // row r, dims 2q + 8, 2q + 9
+    a[kk][3] = widen2_f32(w11, s) & keep;  // row r + 8
   }
 }
 

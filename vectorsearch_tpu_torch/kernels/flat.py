@@ -16,7 +16,10 @@ true top-k row lies in a band whose maximum is at least its coarse score,
 so the only loss is other bands crowding its band out of the top k_bands.
 
 The kernels live in csrc/flat.cu. On CPU tensors each wrapper runs its
-plain version; on CUDA tensors it launches its kernel or raises.
+plain version; on CUDA tensors it launches its kernel or raises. The
+kernels load through TMA, which needs 16-byte row strides: for a D that is
+no multiple of 16 the wrappers pad the codes and the query rows with zero
+columns (a copy of the corpus a call), which add exactly 0 to every dot.
 
 Not carried over from the TPU module: the padding of the corpus to whole
 tiles (the kernels score rows past N as -inf without reading them), the
@@ -42,6 +45,11 @@ S8_LAUNCHES = 0
 BF16_LAUNCHES = 0
 
 DEFAULT_CHUNK = 64 * TILE_N  # corpus rows per step of the plain versions
+
+# (tile lanes, ring stages, queries a block) handed to the kernels: 0 leaves
+# each to the launch rule of csrc/flat.cu. Measurements and tests set it to
+# time or check another schedule; the search path never does.
+SCHEDULE = (0, 0, 0)
 
 
 def n_tiles(n: int) -> int:
@@ -107,17 +115,29 @@ def _corpus_spec(codes, a, bv, bias, d: int) -> dict:
     }
 
 
-def _launch(name: str, args, out, n: int, d: int) -> None:
-    """Launch kernel vs_<name> on `args` (checked tensors, N corpus rows of
-    D dims) into `out`, f32 [B, tiles * 128], on the current stream; raise
-    on a build or launch error."""
+def _pad_dims(t):
+    """`t` [rows, D] with zero columns up to the next multiple of 16 (the
+    kernels' TMA loads need 16-byte row strides); a zero column adds
+    exactly 0 to a dot product."""
+    d = t.shape[1]
+    return torch.nn.functional.pad(t, (0, -d % 16)) if d % 16 else t
+
+
+def _launch(name: str, q, side, codes, corpus, out) -> None:
+    """Launch kernel vs_<name> on checked tensors (queries `q` [B, D'] with
+    D' = D rounded up to 16, their sidecars `side`, `codes` [N, D], the
+    corpus sidecars `corpus`) into `out`, f32 [B, tiles * 128], on the
+    current stream; raise on a build or launch error."""
+    n, d = codes.shape
     if d == 0:
         raise ValueError(f"{name}: needs D >= 1")
+    codes = _pad_dims(codes)
     dev = out.device
     fn = getattr(_build.load(), f"vs_{name}")
     with torch.cuda.device(dev):
-        err = fn(*[t.data_ptr() for t in args], out.data_ptr(), out.shape[0], n, d,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(q.data_ptr(), *[t.data_ptr() for t in side], codes.data_ptr(),
+                 *[t.data_ptr() for t in corpus], out.data_ptr(), out.shape[0], n,
+                 codes.shape[1], *SCHEDULE, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
 
@@ -148,7 +168,7 @@ def flat_bands_s8(qc, sq, qsum, codes, a, bv, bias):
     n = codes.shape[0]
     out = _empty_bands(b, n, dev)
     if out.numel():
-        _launch("flat_bands_s8", args, out, n, d)
+        _launch("flat_bands_s8", _pad_dims(qc), (sq, qsum), codes, (a, bv, bias), out)
         S8_LAUNCHES += 1
     return out
 
@@ -174,7 +194,7 @@ def flat_bands_bf16(q, qsum, codes, a, bv, bias):
     n = codes.shape[0]
     out = _empty_bands(b, n, dev)
     if out.numel():
-        _launch("flat_bands_bf16", args, out, n, d)
+        _launch("flat_bands_bf16", _pad_dims(q), (qsum,), codes, (a, bv, bias), out)
         BF16_LAUNCHES += 1
     return out
 
