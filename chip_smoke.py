@@ -7,8 +7,9 @@ Phases (any failure exits non-zero before the last line is printed):
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: nvcc builds every kernel of the path from vectorsearch_tpu_torch/csrc,
      one nvcc per source, all started together; beside it, ptxas's report
-     (`-Xptxas -v`) of the assign, the grouped-scan and the flat band
-     kernels (a spill or a C75xx warning in the flat kernels fails the run);
+     (`-Xptxas -v`) of the assign, the accumulate, the grouped-scan and the
+     flat band kernels (a spill or a warning in the accumulate or the flat
+     kernels fails the run);
   3. kernels against plain, with median CUDA-event times of both:
      a. the grouped bucket-scan kernel: its edge cases (a cluster with
         count 0, with count = cap, counts off the 128- and 64-column grid,
@@ -24,7 +25,16 @@ Phases (any failure exits non-zero before the last line is printed):
         superset phase's 196,608 rows at K=16,384): cid equal except at
         near-ties, counts equal, sums within tolerance, and two accumulate
         launches bit-identical; beside assign, one torch.matmul of the bf16
-        codes by cn_bf16^T (the product alone) as the library yardstick;
+        codes by cn_bf16^T (the product alone) as the library yardstick.
+        accumulate first at the edges of its chunked design (N around a
+        chunk's length, K=1, one cluster holding every row, empty clusters,
+        clusters ending on chunk boundaries, a cluster over several chunks
+        among 12-member ones, ids out of range, D of 16, 100, 768, 3072;
+        every case twice, bit-identical); then, in turns with the plain-load
+        kernel it replaced: the whole call 10 back to back and one launch a
+        timing, its kernels alone, its torch side alone, index_add_ of the
+        f32 rows as the library yardstick, and the kernels under other
+        chunk lengths and ring depths;
         then assign alone at N=1M over K=256..4096 and at N=196,608 over
         K=2048..16,384, with the line t = a + b K through each N's times;
      c. the s8 and bf16 flat band kernels: their edge cases (N from 1 to
@@ -80,7 +90,8 @@ Phases (any failure exits non-zero before the last line is printed):
      entry has its bound (the larger of its bytes over 3.35 TB/s and its
      operations over the peak of their type, from this run's shapes), its
      share of that bound, and the time of one PyTorch call for the
-     product alone (no sidecars, argmax or maxima; accumulate has none).
+     product alone (no sidecars, argmax or maxima; for accumulate,
+     index_add_ of the f32 dequantized rows).
      The grouped scan's row is its time on the built index's store.
 
 Every kernel launch count is set to 0 just before each of phases 4-8 and
@@ -134,6 +145,20 @@ TIE_ATOL = 1e-5  # a cid may differ only where the plain sims lie this close
 # the chunk of the library yardstick of assign (one bf16 matmul a chunk)
 LIBRARY_CHUNK = 65_536
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-4  # f32 sums of the same values in another order
+# accumulate's two kernels, timed in turns in one call: the chunked one the
+# build runs at D % 16 == 0, and the plain-load one (the first port's) that
+# takes every other D
+ACCUMULATE_ROUTES = ("chunks", "loads")
+# other schedules of the chunked kernel, timed beside the launch rule's:
+# (label, member rows a chunk, ring stages), 0 for the rule's choice
+ACCUMULATE_SCHEDULES = (
+    ("64 rows a chunk", 64, 0), ("128 rows a chunk", 128, 0),
+    ("256 rows a chunk", 256, 0), ("512 rows a chunk", 512, 0),
+    ("1024 rows a chunk", 1024, 0), ("2 stages", 0, 2), ("4 stages", 0, 4),
+)
+# the chunk lengths of accumulate's edge cases: the rule's shortest and its
+# longest
+ACCUMULATE_EDGE_CHUNKS = (64, 512)
 # bench_build.py's configuration (BASELINE config 4)
 BUILD_N, BUILD_K = 10_000_000, 4096
 # the flat search: bands kept per query, and the band kernels' corpus sizes
@@ -283,16 +308,18 @@ def phase_env(torch) -> str:
 
 
 # the sources whose ptxas report is printed, each with the kernel named in it
-PTXAS_REPORTS = (("kmeans.cu", "kmeans_assign"), ("grouped_scan.cu", "grouped_scores"),
-                 ("flat.cu", "flat_bands"))
+PTXAS_REPORTS = (("kmeans.cu", "kmeans_assign"), ("kmeans.cu", "accumulate"),
+                 ("grouped_scan.cu", "grouped_scores"), ("flat.cu", "flat_bands"))
+# the kernels of these reports must show no spill and no warning
+PTXAS_CLEAN = ("accumulate", "flat_bands")
 
 
 def phase_build() -> dict:
     """The kernel library, built as the wrappers build it; beside it, one
     more compile of each source of PTXAS_REPORTS with `-Xptxas -v` for
     ptxas's report of its kernel (registers, shared memory, spills) and any
-    warning that wgmma was serialized (C7510-C7520). The flat band kernels
-    must show no spill and no such warning."""
+    warning that wgmma was serialized (C7510-C7520). The kernels of
+    PTXAS_CLEAN must show no spill and no warning."""
     from vectorsearch_tpu_torch.kernels import _build
 
     reports = {}
@@ -302,7 +329,7 @@ def phase_build() -> dict:
                 [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-c",
                  os.path.join(_build._CSRC, src), "-o", os.path.join(tmp, src + ".o")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, _ in PTXAS_REPORTS
+            for src in sorted({src for src, _ in PTXAS_REPORTS})
         }
         t0 = time.perf_counter()
         path = _build.load()._name
@@ -321,12 +348,15 @@ def phase_build() -> dict:
                 out[kernel].append(" | ".join(ln.strip() for ln in lines[i : i + 3]))
                 log(f"ptxas {kernel}: " + out[kernel][-1])
         warned = [ln.strip() for ln in lines if "C75" in ln or "warning" in ln.lower()]
+        if sum(src == other for other, _ in PTXAS_REPORTS) > 1:
+            warned = [w for w in warned if kernel in w]  # a source of several reports
         out[kernel + "_warnings"] = warned
         log(f"ptxas {src}: {len(warned)} warnings" + "".join("\n  " + w for w in warned[:20]))
-    spilled = [r for r in out["flat_bands"] if "0 bytes spill stores, 0 bytes spill loads" not in r]
-    if spilled or out["flat_bands_warnings"] or not out["flat_bands"]:
-        raise AssertionError(f"flat.cu: ptxas reports spills or warnings: "
-                             f"{spilled} {out['flat_bands_warnings']}")
+    for kernel in PTXAS_CLEAN:
+        spilled = [r for r in out[kernel] if "0 bytes spill stores, 0 bytes spill loads" not in r]
+        if spilled or out[kernel + "_warnings"] or not out[kernel]:
+            raise AssertionError(f"{kernel}: ptxas reports spills or warnings: "
+                                 f"{spilled} {out[kernel + '_warnings']}")
     return out
 
 
@@ -528,12 +558,170 @@ def phase_kernel(torch, dev, smi: str) -> dict:
     }
 
 
+def check_accumulate(torch, km, rows, cid, kk, chunk, label):
+    """accumulate against accumulate_ref on the same cid: counts equal, sums
+    within SUM_RTOL / SUM_ATOL, and a second launch bit-identical. Returns
+    (max |sum err|, sums)."""
+    sums, counts = km.accumulate(rows, cid, kk)
+    again, counts2 = km.accumulate(rows, cid, kk)
+    ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk, chunk)
+    torch.cuda.synchronize()
+    if sums.shape != ref_sums.shape or not torch.equal(counts, ref_counts):
+        raise AssertionError(f"accumulate {label}: counts differ from plain")
+    err = (sums - ref_sums).abs()
+    excess = float((err - SUM_RTOL * ref_sums.abs()).max()) if err.numel() else 0.0
+    if not excess <= SUM_ATOL:
+        raise AssertionError(f"accumulate {label}: sums beyond rtol {SUM_RTOL} by "
+                             f"{excess} > atol {SUM_ATOL}")
+    if not (torch.equal(again, sums) and torch.equal(counts2, counts)):
+        raise AssertionError(f"accumulate {label}: two launches differ")
+    return (float(err.max()) if err.numel() else 0.0), sums
+
+
+def accumulate_edge_cases(torch, dev) -> float:
+    """The accumulate kernels against plain at the edges of the chunked
+    design, every case twice: N around a chunk's length, K=1, one cluster
+    holding every row, every cluster empty but the last, clusters that end
+    on chunk boundaries, a cluster over several chunks among 12-member
+    ones, ids outside [0, K) at both ends of the sort, and D of 16, 100
+    (the plain-load kernel), 768 and 3072. Returns the worst |sum err|."""
+    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.kernels import kmeans as km
+
+    def ids(*runs):
+        """cids of (cluster, members) runs, the rows shuffled."""
+        return [c for c, m in runs for _ in range(m)]
+
+    worst, cases = 0.0, []
+    for c in ACCUMULATE_EDGE_CHUNKS:
+        twelves = [(k, 12) for k in range(20)]
+        cases += [(c, f"N={n}", n, 5, 768, None) for n in (0, 1, c - 1, c, c + 1)]
+        cases += [
+            (c, "K=1", 10 * c + 3, 1, 768, ids((0, 10 * c + 3))),
+            (c, "one cluster holds every row", 20 * c + 5, 7, 768, ids((3, 20 * c + 5))),
+            (c, "every cluster empty but the last", 3 * c + 7, 9, 3072, ids((8, 3 * c + 7))),
+            (c, "clusters end on chunk boundaries", 9 * c, 7, 16,
+             ids((0, c), (1, 2 * c), (3, c), (4, 3 * c), (6, 2 * c))),
+            (c, "a cluster over 4 chunks among 12-member ones", 480 + 3 * c + 40, 41, 768,
+             ids(*twelves, (20, 3 * c + 40), *[(k, 12) for k in range(21, 41)])),
+            (c, "ids out of range at both ends", 6 * c + 11, 6, 768, "out of range"),
+            (c, "D=100 (plain loads)", 5 * c + 1, 4, 100, None),
+            (c, "D=3072", 5 * c + 1, 300, 3072, None),
+            (c, "D=16", 5 * c + 1, 3, 16, None),
+        ]
+    for c, label, n, kk, d, cid_list in cases:
+        gen = torch.Generator(device=dev).manual_seed(n + 31 * kk + d)
+        rows = layout.PackedVectors(
+            torch.randint(-128, 128, (n, d), generator=gen, device=dev, dtype=torch.int8),
+            torch.rand((n,), generator=gen, device=dev) * 0.05,
+            torch.rand((n,), generator=gen, device=dev) + 0.5,  # sums grow with N
+            torch.ones((n,), device=dev))
+        if cid_list is None:
+            cid = torch.randint(0, kk, (n,), generator=gen, device=dev, dtype=torch.int32)
+        elif cid_list == "out of range":
+            cid = torch.randint(-3, kk + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+            cid[:2] = torch.tensor([-(2 ** 31), 2 ** 31 - 1], dtype=torch.int32, device=dev)
+        else:
+            cid = torch.tensor(cid_list, dtype=torch.int32, device=dev)[
+                torch.randperm(n, generator=gen, device=dev)]
+        km.ACCUMULATE_SCHEDULE = ("", c, 0)
+        try:
+            err, _ = check_accumulate(torch, km, rows, cid, kk, 4096,
+                                      f"edge {label}, {c} rows a chunk")
+        finally:
+            km.ACCUMULATE_SCHEDULE = ("", 0, 0)
+        worst = max(worst, err)
+        log(f"accumulate edge {label}: N={n} K={kk} D={d}, {c} rows a chunk "
+            f"({km.accumulate_plan(n, d)[0]}): counts equal, max |sum err| {err:.3g}, "
+            f"two launches bit-identical")
+    return worst
+
+
+def accumulate_timing(torch, km, rows, cid, kk, smi: str) -> dict:
+    """accumulate at one shape under each of ACCUMULATE_ROUTES, in turns
+    (chunks, loads, loads, chunks): the whole call, 10 back to back and one
+    launch a timing; the kernels alone on tensors sorted outside the timing;
+    the torch side (sort, and for "loads" the segments and gathers) alone.
+    Then torch's index_add_ of the f32 dequantized rows as the library
+    yardstick, and the chunked kernels alone under ACCUMULATE_SCHEDULES."""
+    n, d = rows.codes.shape
+    turns = {route: [] for route in ACCUMULATE_ROUTES}
+    for route in (*ACCUMULATE_ROUTES, *reversed(ACCUMULATE_ROUTES)):
+        km.ACCUMULATE_SCHEDULE = (route, 0, 0)
+        try:
+            plan = km.accumulate_plan(n, d)
+            glue = km.accumulate_sort(rows, cid, kk, route)
+            turns[route].append({
+                "ms": median_ms(torch, lambda: km.accumulate(rows, cid, kk), launches=10),
+                "single_launch_ms": median_ms(torch, lambda: km.accumulate(rows, cid, kk)),
+                "kernel_ms": median_ms(
+                    torch, lambda: km.accumulate_launch(rows, kk, plan, glue), launches=10),
+                "glue_ms": median_ms(
+                    torch, lambda: km.accumulate_sort(rows, cid, kk, route), launches=10),
+            })
+            del glue
+        finally:
+            km.ACCUMULATE_SCHEDULE = ("", 0, 0)
+    out = {route: {f: float(np.mean([t[f] for t in ts])) for f in ts[0]}
+           for route, ts in turns.items()}
+    for route, ts in turns.items():
+        out[route]["turns"] = ts
+    # the library yardstick: one index_add_ of the dequantized f32 rows, made
+    # outside the timing (4 bytes a value where the kernel reads 1; atomics)
+    try:
+        v = rows.offset[:, None] + rows.scale[:, None] * rows.codes.float()
+        idx = cid.long()
+        out["library_ms"] = median_ms(torch, lambda: torch.zeros(
+            (kk, d), dtype=torch.float32, device=v.device).index_add_(0, idx, v), 5)
+        del v, idx
+    except RuntimeError as e:  # out of memory
+        out["library_ms"], out["library_note"] = None, str(e)[:200]
+    torch.cuda.empty_cache()
+    # what the torch side does not do, timed: 16-bit sort keys (the cast,
+    # then the sort) and an int32 copy of the order for the kernel to read
+    glue = km.accumulate_sort(rows, cid, kk, "chunks")
+    cid16 = cid.to(torch.int16)
+    out["torch_side_variants"] = {
+        "ids to int16": median_ms(torch, lambda: cid.to(torch.int16), launches=10),
+        "sort of int16 ids": median_ms(
+            torch, lambda: torch.sort(cid16, stable=True), launches=10),
+        "order to int32": median_ms(torch, lambda: glue[1].to(torch.int32), launches=10),
+    }
+    out["schedules"] = {}
+    for label, chunk_rows, stages in ACCUMULATE_SCHEDULES:
+        km.ACCUMULATE_SCHEDULE = ("chunks", chunk_rows, stages)
+        try:
+            plan = km.accumulate_plan(n, d)
+            out["schedules"][label] = median_ms(
+                torch, lambda: km.accumulate_launch(rows, kk, plan, glue), launches=10)
+        finally:
+            km.ACCUMULATE_SCHEDULE = ("", 0, 0)
+    out["chunk_rows"] = km.accumulate_plan(n, d)[1]
+    for route in ACCUMULATE_ROUTES:
+        r = out[route]
+        log(f"accumulate N={n} D={d} K={kk} route {route}: whole call {r['ms']:.3f} ms (10 back "
+            f"to back), {r['single_launch_ms']:.3f} ms one launch; kernels alone "
+            f"{r['kernel_ms']:.3f} ms; torch side alone {r['glue_ms']:.3f} ms (means of two "
+            f"turns' medians of 20; turns {[round(t['ms'], 3) for t in r['turns']]}; {smi})")
+    lib = (f"{out['library_ms']:.3f} ms" if out["library_ms"] is not None
+           else f"none ({out['library_note']})")
+    log(f"accumulate N={n} D={d} K={kk}: library {lib} (zeros(K, D).index_add_(0, cid, v), v "
+        f"the f32 dequantized rows made outside the timing; {smi}); the chunked kernels "
+        f"alone under other schedules (the rule: {out['chunk_rows']} rows a chunk, "
+        f"{out['chunks']['kernel_ms']:.3f} ms): " + "; ".join(
+            f"{label} {ms:.3f}" for label, ms in out["schedules"].items())
+        + "; not done on the torch side (ms): " + "; ".join(
+            f"{label} {ms:.3f}" for label, ms in out["torch_side_variants"].items()))
+    return out
+
+
 def phase_kmeans_kernels(torch, dev, smi: str) -> list:
     """assign and accumulate against their plain versions on clustered
     packed rows, with centroids drawn from the rows (sample_init's way)."""
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.kernels import kmeans as km
 
+    worst_edge = accumulate_edge_cases(torch, dev)
     n_max = max(n for n, _, _ in KMEANS_SHAPES)
     parts = [p for _, p in packed_on_card(torch, dev, n_max, DIM, K_GEN, seed=1)]
     full = layout.PackedVectors(*[torch.cat(a) for a in zip(*parts)])
@@ -559,29 +747,30 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
         if gap > TIE_ATOL:
             raise AssertionError(f"assign N={n} K={kk}: {moved.numel()} rows differ "
                                  f"from plain, widest sim gap {gap} > {TIE_ATOL}")
-        sums, counts = km.accumulate(rows, cid, kk)
-        ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk, chunk)
-        again, _ = km.accumulate(rows, cid, kk)
-        torch.cuda.synchronize()
-        if not torch.equal(counts, ref_counts):
-            raise AssertionError(f"accumulate N={n} K={kk}: counts differ from plain")
-        err = (sums - ref_sums).abs()
-        excess = float((err - SUM_RTOL * ref_sums.abs()).max())
-        if excess > SUM_ATOL:
-            raise AssertionError(f"accumulate N={n} K={kk}: sums beyond rtol "
-                                 f"{SUM_RTOL} by {excess} > atol {SUM_ATOL}")
-        if not torch.equal(again, sums):
-            raise AssertionError(f"accumulate N={n} K={kk}: two launches differ")
+        sum_err, sums = check_accumulate(torch, km, rows, cid, kk, chunk, f"N={n} K={kk}")
+        # the plain-load kernel on the same input, and the two against each other
+        km.ACCUMULATE_SCHEDULE = ("loads", 0, 0)
+        try:
+            loads_err, loads_sums = check_accumulate(torch, km, rows, cid, kk, chunk,
+                                                     f"N={n} K={kk} (plain loads)")
+        finally:
+            km.ACCUMULATE_SCHEDULE = ("", 0, 0)
+        routes_gap = float((sums - loads_sums).abs().max())
+        del sums, loads_sums
         plain_runs = 5
+        acc = accumulate_timing(torch, km, rows, cid, kk, smi)
         r = {
             "N": n, "K": kk, "cid_moved": int(moved.numel()), "max_tie_gap": gap,
-            "max_abs_sum_err": float(err.max()),
+            "max_abs_sum_err": sum_err, "max_abs_sum_err_plain_loads": loads_err,
+            "max_abs_gap_between_routes": routes_gap,
             "assign_ms": median_ms(torch, lambda: km.assign(rows, cn_bf16, csum)),
             "assign_plain_ms": median_ms(
                 torch, lambda: km.assign_ref(rows, cn_bf16, csum, chunk), plain_runs),
-            "accumulate_ms": median_ms(torch, lambda: km.accumulate(rows, cid, kk)),
+            "accumulate_ms": acc["chunks"]["ms"],
             "accumulate_plain_ms": median_ms(
                 torch, lambda: km.accumulate_ref(rows, cid, kk, chunk), plain_runs),
+            "accumulate_library_ms": acc["library_ms"],
+            "accumulate_timing": acc,
         }
         # assign: 2 N K D bf16 flops; the codes, sidecars and centroids read
         # once, cid written. accumulate: the codes, scale, offset and cid
@@ -592,6 +781,8 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
                                       2 * n * DIM, PEAK_F32_FLOPS)
         r["assign_share"] = r["assign_bound"]["bound_ms"] / r["assign_ms"]
         r["accumulate_share"] = r["accumulate_bound"]["bound_ms"] / r["accumulate_ms"]
+        r["accumulate_kernel_share"] = (r["accumulate_bound"]["bound_ms"]
+                                        / acc["chunks"]["kernel_ms"])
         # the library yardstick, product only (no sidecars, no argmax): one
         # torch.matmul of the bf16 codes, widened outside the timing, by
         # cn_bf16^T per LIBRARY_CHUNK rows
@@ -609,13 +800,16 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
             f"{r['assign_library_ms']:.3f} ms (torch.matmul of bf16 codes by cn_bf16^T in "
             f"{LIBRARY_CHUNK}-row chunks: product only, no sidecars or argmax), "
             f"{r['cid_moved']} cids differ (widest sim gap "
-            f"{gap:.3g}); accumulate {r['accumulate_ms']:.3f} ms vs plain "
+            f"{gap:.3g}); accumulate {r['accumulate_ms']:.3f} ms (the whole call, 10 back to "
+            f"back) vs plain "
             f"{r['accumulate_plain_ms']:.3f} ms, bound {r['accumulate_bound']['bound_ms']:.3f} "
-            f"ms ({r['accumulate_bound']['bound_by']}), share {r['accumulate_share']:.3f}, "
+            f"ms ({r['accumulate_bound']['bound_by']}), share {r['accumulate_share']:.3f} "
+            f"(its kernels alone {r['accumulate_kernel_share']:.3f}), "
             f"counts equal, max |sum err| "
-            f"{r['max_abs_sum_err']:.3g}, bit-identical relaunch (median of 20 / "
+            f"{r['max_abs_sum_err']:.3g} (the plain-load kernel {loads_err:.3g}; between the "
+            f"two {routes_gap:.3g}), bit-identical relaunch (median of 20 / "
             f"{plain_runs}, {smi})")
-        del sums, ref_sums, again, err, want, cid
+        del want, cid
     sweep = assign_sweep(torch, dev, full, smi)
     del full
     torch.cuda.empty_cache()
@@ -637,14 +831,19 @@ def phase_kmeans_kernels(torch, dev, smi: str) -> list:
          "k_sweep": sweep},
         {"name": "kmeans_accumulate", "route": "cuda", "source": src,
          "replaces": "vectorsearch_tpu/kernels/pallas_kmeans.py:100",
-         "max_abs_err": worst_sum, "ms": main["accumulate_ms"],
+         "max_abs_err": max(worst_sum, worst_edge), "ms": main["accumulate_ms"],
          "plain_ms": main["accumulate_plain_ms"], **main["accumulate_bound"],
          "share": main["accumulate_share"],
-         "library_ms": None,  # no one PyTorch call computes this function
-         "ms_at": at + " (with the sort glue)",
+         "library_ms": main["accumulate_library_ms"],
+         "library_call": "torch.zeros(K, D).index_add_(0, cid, v) with v the f32 "
+                         "dequantized rows made outside the timing (atomics)",
+         "ms_at": at + ", the whole call with its sort, 10 back to back",
          "by_shape": {k: {f: v[f] for f in ("max_abs_sum_err", "accumulate_ms",
                                               "accumulate_plain_ms", "accumulate_bound",
-                                              "accumulate_share")}
+                                              "accumulate_share", "accumulate_kernel_share",
+                                              "accumulate_library_ms", "accumulate_timing",
+                                              "max_abs_sum_err_plain_loads",
+                                              "max_abs_gap_between_routes")}
                       for k, v in by_shape.items()}},
     ]
 
@@ -1595,6 +1794,7 @@ def main() -> int:
     ptxas = phase_build()
     entries = [phase_kernel(torch, dev, smi), *phase_kmeans_kernels(torch, dev, smi),
                *phase_flat_kernels(torch, dev, smi, ptxas)]
+    entries[2].update(ptxas=ptxas["accumulate"], ptxas_warnings=ptxas["accumulate_warnings"])
 
     def run(phase, fn):
         """fn() with every launch count set to 0 just before and read just

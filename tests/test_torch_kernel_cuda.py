@@ -13,7 +13,9 @@ Tolerances, kernel vs plain:
   in another order);
 - k-means accumulate: for the same cid, equal counts and sums within
   rtol 1e-5 / atol 1e-4 (f32 sums in another order); two launches give
-  bit-identical sums;
+  bit-identical sums; the same at every edge of the chunked kernel (N
+  around a chunk's length, clusters cut by chunk edges, empty clusters, ids
+  out of range) and through the plain-load kernel;
 - flat bands: s8 bit-equal (exact integer dots, the plain version's
   roundings), also where |dot| passes 2^24; bf16 within atol 1e-4 (f32
   sums in another order) with the same -inf pattern; the same under every
@@ -340,6 +342,101 @@ def test_accumulate_is_deterministic(cuda):
     assert torch.equal(s1, s2) and torch.equal(c1, c2)
     assert float(c1[-1]) == 0 and not bool(s1[-1].any())
     assert float(c1.sum()) == n
+
+
+def _runs(*runs):
+    return [c for c, m in runs for _ in range(m)]
+
+
+def _accumulate_edges(c):
+    """(label, K, D, cids or N for random ones) at `c` member rows a chunk."""
+    twelves = [(k, 12) for k in range(20)]
+    return [
+        *[(f"N={n}", 5, 768, n) for n in (0, 1, c - 1, c, c + 1)],
+        ("K=1", 1, 768, _runs((0, 10 * c + 3))),
+        ("one cluster holds every row", 7, 768, _runs((3, 20 * c + 5))),
+        ("every cluster empty but the last", 9, 3072, _runs((8, 3 * c + 7))),
+        ("clusters end on chunk boundaries", 7, 16,
+         _runs((0, c), (1, 2 * c), (3, c), (4, 3 * c), (6, 2 * c))),
+        ("a cluster begins with a chunk and goes on", 4, 768,
+         _runs((0, c), (2, c + 9), (3, 2))),
+        ("a cluster over 4 chunks among 12-member ones", 41, 768,
+         _runs(*twelves, (20, 3 * c + 40), *[(k, 12) for k in range(21, 41)])),
+        ("ids out of range at both ends", 6, 768, "out of range"),
+        ("D=100", 4, 100, 5 * c + 1),
+        ("D=3072", 300, 3072, 5 * c + 1),
+        ("D=6144", 9, 6144, 2 * c + 1),
+        ("D=6160", 9, 6160, 2 * c + 1),
+        ("D=16", 3, 16, 5 * c + 1),
+    ]
+
+
+ACCUMULATE_EDGES = [(c, *case) for c in (64, 512) for case in _accumulate_edges(c)]
+
+
+@pytest.mark.parametrize("c,label,kk,d,ids", ACCUMULATE_EDGES,
+                         ids=[f"{c}-{case[0]}" for c, *case in ACCUMULATE_EDGES])
+def test_accumulate_edges_match_plain_twice(cuda, monkeypatch, c, label, kk, d, ids):
+    """The accumulate kernels at the edges of the chunked design, `c`
+    member rows a chunk forced: counts equal to the plain version's, sums
+    within rtol 1e-5 / atol 1e-4, and a second launch bit for bit the
+    first. D=100 and D=6160 take the plain-load kernel."""
+    n = ids if isinstance(ids, int) else 6 * c + 11 if isinstance(ids, str) else len(ids)
+    gen = torch.Generator(device=cuda).manual_seed(n + 31 * kk + d)
+    rows = PackedVectors(
+        torch.randint(-128, 128, (n, d), generator=gen, device=cuda, dtype=torch.int8),
+        torch.rand((n,), generator=gen, device=cuda) * 0.05,
+        torch.rand((n,), generator=gen, device=cuda) + 0.5,  # sums grow with N
+        torch.ones((n,), device=cuda))
+    if isinstance(ids, int):
+        cid = torch.randint(0, kk, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    elif isinstance(ids, str):
+        cid = torch.randint(-3, kk + 3, (n,), generator=gen, device=cuda, dtype=torch.int32)
+        cid[:2] = torch.tensor([-(2 ** 31), 2 ** 31 - 1], dtype=torch.int32, device=cuda)
+    else:
+        cid = torch.tensor(ids, dtype=torch.int32, device=cuda)[
+            torch.randperm(n, generator=gen, device=cuda)]
+    monkeypatch.setattr(km, "ACCUMULATE_SCHEDULE", ("", c, 0))
+    want_route = "chunks" if d % 16 == 0 and d <= km.CHUNKS_MAX_DIM else "loads"
+    assert km.accumulate_plan(n, d)[0] == want_route
+    before = km.ACCUMULATE_LAUNCHES
+    s1, c1 = km.accumulate(rows, cid, kk)
+    s2, c2 = km.accumulate(rows, cid, kk)
+    ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk, chunk=4096)
+    torch.cuda.synchronize()
+    assert km.ACCUMULATE_LAUNCHES == before + 2
+    assert torch.equal(c1, ref_counts)
+    torch.testing.assert_close(s1, ref_sums, rtol=1e-5, atol=1e-4)
+    assert torch.equal(s1, s2) and torch.equal(c1, c2)
+
+
+@pytest.mark.parametrize("schedule", [("loads", 0, 0), ("chunks", 1024, 1), ("chunks", 128, 8),
+                                      ("chunks", 64, 2)])
+def test_accumulate_under_every_route_and_ring(cuda, monkeypatch, schedule):
+    """The same sums, within tolerance, from the plain-load kernel and
+    from the chunked one under other chunk lengths and ring depths."""
+    n, d, kk = 70_001, 768, 300
+    rows = _rows_on(cuda, n, d)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    cid = torch.randint(-1, kk + 1, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk, chunk=4096)
+    monkeypatch.setattr(km, "ACCUMULATE_SCHEDULE", schedule)
+    sums, counts = km.accumulate(rows, cid, kk)
+    again, _ = km.accumulate(rows, cid, kk)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, ref_counts)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=1e-4)
+    assert torch.equal(sums, again)
+
+
+@pytest.mark.parametrize("schedule", [("chunks", 100, 0), ("chunks", 64, 9), ("chunks", 33, 0)])
+def test_accumulate_refuses_a_bad_schedule(cuda, monkeypatch, schedule):
+    rows = _rows_on(cuda, 1000, 512)
+    monkeypatch.setattr(km, "ACCUMULATE_SCHEDULE", schedule)
+    before = km.ACCUMULATE_LAUNCHES
+    with pytest.raises(RuntimeError, match="cudaError"):
+        km.accumulate(rows, torch.zeros(1000, dtype=torch.int32, device=cuda), 5)
+    assert km.ACCUMULATE_LAUNCHES == before
 
 
 def test_assign_accumulate_pass_matches_plain(cuda):

@@ -3,6 +3,13 @@ the Pallas kernels in interpret mode (assign_accumulate_pallas) and the
 XLA Lloyd's body (_assign_and_accumulate, use_pallas=False), on the cases
 of tests/test_pallas_kmeans.py plus one with D not a multiple of 16.
 
+The host side of the chunked accumulate kernel runs here too: the launch
+plan (route, chunk length, scratch rows), the segment table by the kernel's
+rule against numpy's searchsorted, and the two passes' bookkeeping (which
+run goes to its cluster's row, which to which partial row, which partials a
+cluster adds) in plain PyTorch against accumulate_ref at the edges of the
+design.
+
 The JAX side gets its K padded to _k_pad_class with a -inf kmask and 5
 invalid tail rows; the port gets the real K and only the valid rows.
 
@@ -143,6 +150,95 @@ def test_accumulate_drops_out_of_range_ids():
     assert counts.tolist() == [rows.n - 20] + [0.0] * 8
     v = rows.offset[20:, None] + rows.scale[20:, None] * rows.codes[20:].float()
     torch.testing.assert_close(sums[0], v.sum(0), rtol=1e-5, atol=1e-3)
+
+
+def _runs(*runs):
+    return [c for c, m in runs for _ in range(m)]
+
+
+C = 8  # the chunk length of the edge cases below
+EDGE_CIDS = {
+    "N=0": (5, []),
+    "N=1": (5, [2]),
+    "N=chunk-1": (5, _runs((0, 3), (4, 4))),
+    "N=chunk": (5, _runs((1, 8))),
+    "N=chunk+1": (5, _runs((1, 4), (3, 5))),
+    "K=1": (1, _runs((0, 29))),
+    "one cluster holds every row": (7, _runs((3, 45))),
+    "every cluster empty but the last": (9, _runs((8, 21))),
+    "clusters end on chunk boundaries": (7, _runs((0, 8), (1, 16), (3, 8), (4, 24), (6, 16))),
+    "a cluster over 4 chunks among 3-member ones": (
+        13, _runs(*[(k, 3) for k in range(6)], (6, 30), *[(k, 3) for k in range(7, 13)])),
+    "a cluster that begins with a chunk and goes on": (4, _runs((0, 8), (2, 11), (3, 2))),
+    "ids out of range at both ends": (
+        4, [-(2 ** 31), -1, -1, 0, 0, 0, 1, 3, 3, 3, 3, 3, 3, 3, 4, 5, 2 ** 31 - 1]),
+    "out of range ids only": (3, [-2, -1, 3, 9]),
+}
+
+
+@pytest.mark.parametrize("label", list(EDGE_CIDS))
+def test_segment_table_matches_searchsorted(label):
+    """seg[k] by the kernel's rule = numpy's searchsorted of k in the
+    sorted ids, empty clusters and out-of-range ids included."""
+    kk, ids = EDGE_CIDS[label]
+    sorted_cid = torch.tensor(sorted(ids), dtype=torch.int32)
+    seg = km.segments_ref(sorted_cid, kk)
+    want = np.searchsorted(np.sort(np.asarray(ids, np.int64)), np.arange(kk + 1), "left")
+    assert seg.shape == (kk + 1,)
+    np.testing.assert_array_equal(seg.numpy(), want)
+
+
+@pytest.mark.parametrize("d", [16, 100])
+@pytest.mark.parametrize("label", list(EDGE_CIDS))
+def test_chunked_passes_match_plain(label, d):
+    """The chunked kernels' bookkeeping in plain PyTorch (shuffled rows, 8
+    members a chunk) against accumulate_ref: every cluster's row written
+    once, counts equal, sums within rtol 1e-5 / atol 1e-4 (f32 sums of the
+    same values in another order), and only runs cut by a chunk's edge go
+    through the scratch."""
+    kk, ids = EDGE_CIDS[label]
+    n = len(ids)
+    rng = np.random.default_rng(n + kk)
+    rows = PackedVectors(
+        torch.from_numpy(rng.integers(-128, 128, (n, d), dtype=np.int8)),
+        torch.from_numpy(rng.random(n, dtype=np.float32) * 0.05),
+        torch.from_numpy(rng.standard_normal(n, dtype=np.float32)),
+        torch.ones(n))
+    cid = torch.tensor(ids, dtype=torch.int32)[torch.from_numpy(rng.permutation(n))]
+    sums, counts, written = km.accumulate_chunks_ref(rows, cid, kk, C)
+    ref_sums, ref_counts = km.accumulate_ref(rows, cid, kk)
+    assert not torch.isnan(sums).any()
+    assert torch.equal(counts, ref_counts)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=1e-4)
+    # the scratch rows written: the clusters that span chunks, one a chunk
+    live = sorted(i for i in ids if 0 <= i < kk)
+    spans = [(live.index(k) // C, (len(live) - 1 - live[::-1].index(k)) // C)
+             for k in sorted(set(live))]
+    assert len(written) == sum(c1 - c0 + 1 for c0, c1 in spans if c1 > c0)
+    assert len(set(written)) == len(written)
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (1_000_000, 768, ("chunks", 512, 3908)),
+    (10_000_000, 768, ("chunks", 512, 39064)),
+    (196_608, 768, ("chunks", 256, 1536)),
+    (60_000, 768, ("chunks", 128, 938)),
+    (0, 768, ("chunks", 64, 0)),
+    (1, 16, ("chunks", 64, 2)),
+    (5000, 100, ("loads", 0, 0)),
+    (5000, 6144, ("chunks", 64, 158)),
+    (5000, 6160, ("loads", 0, 0)),
+])
+def test_accumulate_plan(n, d, want, monkeypatch):
+    """Rows of D % 16 == 0 up to 6144 dims go to the chunked kernel, in
+    chunks of 64 to 512 members with two scratch rows a chunk; any other D
+    to the plain-load kernel. A forced schedule overrides the rule."""
+    assert km.accumulate_plan(n, d) == want
+    monkeypatch.setattr(km, "ACCUMULATE_SCHEDULE", ("loads", 0, 0))
+    assert km.accumulate_plan(n, d) == ("loads", 0, 0)
+    monkeypatch.setattr(km, "ACCUMULATE_SCHEDULE", ("", 128, 0))
+    if want[0] == "chunks":
+        assert km.accumulate_plan(n, d) == ("chunks", 128, 2 * -(-n // 128))
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():

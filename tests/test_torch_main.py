@@ -4,7 +4,9 @@ In a subprocess with the deterministic fake embedder (VSTPU_NOOP_AI=1): a
 missing config writes a sample and exits 1; the entry boots, serves an
 upload and a search over HTTP and HTTPS, exits 0 on SIGTERM, and serves
 the same documents again after a reboot; a `mesh` config exits non-zero
-at once. In process: a SQLite store and snapshot dir written by the JAX
+at once. Every boot asks for the CPU by name (VSTPU_DEVICE=cpu): with the
+variable unset and no card, run() names it on stderr and returns non-zero
+before it opens the store. In process: a SQLite store and snapshot dir written by the JAX
 Engine boot the port's server (from the snapshot) and answer the same
 searches, and a store and snapshots written by the port's Engine boot the
 JAX Engine with the same answers.
@@ -63,7 +65,7 @@ def _config(tmp_path, https=False, **extra):
 
 
 def _entry(config_path, log_path):
-    env = dict(os.environ, PYTHONPATH=ROOT, VSTPU_NOOP_AI="1")
+    env = dict(os.environ, PYTHONPATH=ROOT, VSTPU_NOOP_AI="1", VSTPU_DEVICE="cpu")
     log = open(log_path, "ab")
     try:
         return subprocess.Popen(
@@ -140,7 +142,7 @@ def test_boot_serve_sigterm_and_reboot(tmp_path):
         tls.close()
     finally:
         _stop(proc, log_path)
-    assert "device cpu" in log_path.read_text()
+    assert "device cpu (asked for with VSTPU_DEVICE)" in log_path.read_text()
 
     proc = _entry(path, log_path)
     try:
@@ -166,6 +168,25 @@ def test_mesh_config_exits_at_once(tmp_path, mesh):
     )
     assert out.returncode != 0 and "not ported" in out.stderr
     assert not (tmp_path / "store.db").exists()  # nothing was served or stored
+
+
+def test_no_card_and_no_ask_refuses_to_serve(tmp_path, monkeypatch, capsys):
+    """VSTPU_DEVICE unset and no CUDA card: one line on stderr that names
+    the variable, a non-zero code, and no store opened. VSTPU_DEVICE=cuda
+    without a card is refused the same way."""
+    _, cfg = _config(tmp_path)
+    cfg["log_level"] = "error"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for ask in (None, "cuda"):
+        if ask is None:
+            monkeypatch.delenv("VSTPU_DEVICE", raising=False)
+        else:
+            monkeypatch.setenv("VSTPU_DEVICE", ask)
+        rc = entry.run(config_mod.Config.parse(json.dumps(cfg)), WordHashAI())
+        err = capsys.readouterr().err.strip().splitlines()
+        assert rc != 0
+        assert len(err) == 1 and "VSTPU_DEVICE" in err[0] and "no CUDA card" in err[0]
+        assert not (tmp_path / "store.db").exists()
 
 
 # ---- snapshots and stores across the two packages
@@ -236,6 +257,7 @@ def test_jax_store_and_snapshots_boot_the_port_server(tmp_path, small_buckets, m
     # rebuild may re-cluster meanwhile: the exhaustive search is compared)
     _, cfg = _config(tmp_path)
     cfg["log_level"] = "error"
+    monkeypatch.setenv("VSTPU_DEVICE", "cpu")
     port = int(cfg["server"]["http_address"].rsplit(":", 1)[1])
     stop, rc = threading.Event(), []
     server = threading.Thread(target=lambda: rc.append(entry.run(

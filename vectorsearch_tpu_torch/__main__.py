@@ -4,10 +4,15 @@
 
 It reads main.py's config file. Boot order as there: config (a sample is
 written on first run), logger, AI providers (VSTPU_NOOP_AI=1 takes the
-deterministic fake), store, preftest, the engine on the CUDA card (the CPU
-when there is none), a startup thread that builds the kernels and
-rebuilds every category's centroids, the store-sync loop, the HTTP and
-HTTPS/h2 listeners, and a graceful shutdown on SIGINT/SIGTERM.
+deterministic fake), the device, store, preftest, the engine, a startup
+thread that builds the kernels and rebuilds every category's centroids,
+the store-sync loop, the HTTP and HTTPS/h2 listeners, and a graceful
+shutdown on SIGINT/SIGTERM.
+
+The device is the CUDA card, or what VSTPU_DEVICE asks for (`cpu`, `cuda`,
+`cuda:N`). With no card and no such ask the entry prints one line that
+names the variable and exits non-zero before it opens the store: it never
+carries on on the CPU because it found no GPU.
 
 Sharded serving and multi-host runtimes (the config's `mesh` section) are
 not ported: such a config exits at once, non-zero.
@@ -27,7 +32,7 @@ import torch
 from . import config as config_mod
 from .api import TLSManager, build_app
 from .api.http import HTTPServer
-from .device import resolve, to_device
+from .device import DEVICE_ENV, resolve, to_device
 from .embed import AI
 from .engine import Engine
 from .kernels import cosine
@@ -39,6 +44,10 @@ MESH_NOT_PORTED = (
     "sharded serving (mesh.coordinator / mesh.shard_serving) is not ported "
     "to vectorsearch_tpu_torch yet: remove the config's mesh section, or "
     "serve it with main.py"
+)
+NO_CARD = (
+    "no CUDA card ({asked}): vectorsearch_tpu_torch serves on an NVIDIA GPU; "
+    "set VSTPU_DEVICE=cpu to serve on the CPU"
 )
 
 
@@ -198,9 +207,17 @@ def run(cfg: config_mod.Config, ai=None, stop: threading.Event | None = None) ->
     if ai is None:
         ai = AI.from_config(cfg, use_noop=os.environ.get("VSTPU_NOOP_AI") == "1")
     device = resolve(None)
+    asked = os.environ.get(DEVICE_ENV)
+    # the CPU serves only when asked for by name, and a card only when
+    # there is one: the entry never carries on where it found no GPU
+    if not (torch.cuda.is_available() if device.type == "cuda" else asked):
+        refusal = NO_CARD.format(asked=f"{DEVICE_ENV}={asked}" if asked else f"{DEVICE_ENV} unset")
+        print(refusal, file=sys.stderr)
+        return 3
     sugar().info(
         "device %s (%s)", device,
-        torch.cuda.get_device_name(device) if device.type == "cuda" else "no CUDA card",
+        torch.cuda.get_device_name(device) if device.type == "cuda"
+        else f"asked for with {DEVICE_ENV}",
     )
 
     store = build_store(cfg)

@@ -385,7 +385,7 @@ grouped_scores_kernel(const __grid_constant__ CUtensorMap map_codes,
 
 // the library's ABI version: bumped whenever an entry point of any source
 // under csrc/ is added or changes its arguments
-extern "C" int vs_abi_version() { return 5; }
+extern "C" int vs_abi_version() { return 6; }
 
 extern "C" int vs_grouped_scores(const void* qg, const void* qsum,
                                  const void* gcl, const void* counts,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
-// mbarriers, 2D TMA loads and the tensor maps they read, wgmma's fences and
+// mbarriers, 2D TMA loads and the tensor maps they read, 1D bulk copies,
+// wgmma's fences and
 // its descriptor of a 128-byte-swizzled K-major tile, and the exact int8 ->
 // bf16 widening of two codes at a time.
 
@@ -58,6 +59,26 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// an L2 policy for bytes that are read once: they are the first to leave
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+// 1D bulk copy of `bytes` contiguous bytes from global to shared memory,
+// no tensor map: both addresses and the size are multiples of 16; completion
+// is counted in bytes on `bar`; `policy` is the L2 policy of the bytes read
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar,
+                                             uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
       : "memory");
 }
 

@@ -71,25 +71,61 @@
 // next row tile's codes under the current tile's products, and the two
 // warpgroups' epilogues kept out of step.
 //
-// vs_kmeans_accumulate, given the rows ordered by cluster (`order`, a
-// stable sort of cid) and each cluster's segment [seg[k], seg[k+1]) of
-// that order, with scale and offset gathered in the same order:
+// vs_kmeans_accumulate, given the stable sort of cid (`order`, the row
+// numbers by cluster, and `scid`, the sorted ids):
 //
-//   sums[k, :] = sum over the segment of (offset + scale * codes[row, :])
-//   counts[k]  = seg[k+1] - seg[k]
+//   sums[k, :] = sum over the rows of cluster k of (offset + scale * codes[row, :])
+//   counts[k]  = the number of such rows
 //
 // The TPU kernel multiplies a [1024, T] one-hot by the dequantized tile on
 // the MXU and reads the codes K / 1024 times; here the sum is a segmented
-// sum that reads each code row once, so it is bound by the code bytes.
-// One block of 8 warps per (cluster, 128 dims): warp w takes members w,
-// w + 8, ... of the segment, each lane 4 dims of a member's row (one
-// 128-byte line per warp), summed in f32 with Kahan compensation; the 8
-// warps' partials are added in warp order. No float atomics: two launches
-// on the same input give bit-identical sums. The TPU kernel splits each
-// value into hi + lo bf16 (about 16 mantissa bits); this kernel keeps the
-// full f32 value, as the plain version does. Clusters with no members get
-// zero sums and a zero count. Any K >= 1 and D >= 1; D % 4 == 0 takes
-// 4-byte loads, any other D byte loads.
+// sum that reads each code row once, so it is bound by the code bytes (N x
+// D of them), and the design is about keeping those bytes moving:
+//
+// - Balanced work whatever K: the sorted positions whose id lies in [0, K)
+//   are cut into chunks of a fixed number of members (64 to 512, the
+//   wrapper's rule), and about three persistent blocks an SM take chunks
+//   from a counter. A 12-member cluster costs a flush, not a block; a
+//   3000-member one is spread over several blocks.
+// - Whole rows in long bursts, many in flight: a producer warp, one lane a
+//   member, reads the member's row number, id and sidecars and starts one
+//   1D bulk copy of the row's D bytes (cp.async.bulk, completion on an
+//   mbarrier) into a ring of 32-row stages in shared memory: 24 KB a stage
+//   at D=768, three stages a block. The code rows carry an evict-first L2
+//   policy, so that the sidecars' 32-byte sectors stay in L2 for the seven
+//   other rows that share them.
+// - Six consumer warps: a thread owns 4 dims (one 32-bit word; up to 8
+//   words at D=6144) of every row of the chunk and adds them in the sorted
+//   order, with the plain version's roundings (offset + (scale * code)).
+//   The producer marks where a stage's runs begin, so the loop over a run's
+//   rows has no branch in it.
+// - Deterministic, no float atomics: a cluster that lies inside one chunk is
+//   written by that chunk alone. A run cut by a chunk's edge goes to one of
+//   the chunk's two partial rows (its first run, its last), and a second
+//   kernel adds a cluster's partials in chunk order, in f64, writes the
+//   counts and zeroes the empty clusters. The order of the adds is fixed by
+//   the layout (chunk, stage, row), never by arrival: two launches on the
+//   same input give bit-identical sums.
+// - Kahan compensation is kept, on every add: without it inside a ring
+//   stage (the stages' sums still compensated) 65,537 rows of one cluster
+//   whose sum nearly cancels came out 2.5e-4 from the plain version's, past
+//   the tolerance (rtol 1e-5, atol 1e-4). Measured on an NVIDIA H100 80GB
+//   HBM3 (700 W) at 1M x 768 rows and K=1024 against the plain version: max
+//   |sum err| 1.95e-3 on sums near 10^3, the same as the plain-load kernel
+//   below, so what is left there is the plain version's own error.
+// - The segment table seg[k] (the first position with an id >= k) comes from
+//   one pass over scid by a third small kernel, which also zeroes the chunk
+//   counter. The TPU kernel splits each value into hi + lo bf16 (about 16
+//   mantissa bits); these kernels keep the full f32 value.
+//
+// Bulk copies need 16-byte rows: D % 16 == 0 and D <= 6144 take this path.
+// Any other D takes vs_kmeans_accumulate_loads, the first port's kernel:
+// one block of 8 warps per (cluster, 128 dims) over each cluster's segment
+// of the order, with the sidecars gathered in that order; warp w takes
+// members w, w + 8, ..., each lane 4 dims with plain loads (byte loads when
+// D % 4 != 0), Kahan-compensated, the 8 warps' partials added in warp
+// order. Clusters with no members get zero sums and a zero count on both
+// paths; any K >= 1 and D >= 1.
 //
 // C interface (loaded with ctypes): each entry point launches on the
 // given stream and returns cudaGetLastError() (or the error that stopped
@@ -389,6 +425,259 @@ kmeans_assign_kernel(const __grid_constant__ CUtensorMap map_codes,
 
 // -------------------------------------------------------------- accumulate
 
+// ---- the chunked path (D % 16 == 0): bulk copies of whole rows
+
+constexpr int C_ROWS = 32;     // member rows a ring stage, one producer lane each
+constexpr int C_WARPS = 6;     // consumer warps: 192 threads, 4 dims a word
+constexpr int C_CONSUMERS = C_WARPS * 32;
+constexpr int C_THREADS = C_CONSUMERS + 32;  // + the producer warp
+constexpr int C_MAX_STAGES = 8;
+constexpr int C_MAX_WORDS = 8;  // words a consumer thread: D <= 6144
+// a stage's sidecars: {scale, offset, cid, -} a row, then its edge: {the
+// clusters of the members just before and just after the chunk, a bit for
+// each row past the first that begins a run, the chunk}
+constexpr int C_META = C_ROWS * 16 + 16;
+constexpr int C_BARS = 2 * C_MAX_STAGES * 8;
+
+// seg[k] = the first position of the sorted cids that holds an id >= k, for
+// k = 0 .. K: position m writes every k in (cid[m - 1], cid[m]], with -1
+// before the first position and K after the last, ids clamped to [-1, K]
+__global__ void accumulate_segments_kernel(const int32_t* __restrict__ scid,
+                                           int N, int K,
+                                           int32_t* __restrict__ seg) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m > N) return;
+  if (m == 0) seg[K + 1] = 0;  // the chunk counter
+  const int prev = m == 0 ? -1 : min(max(scid[m - 1], -1), K);
+  const int cur = m == N ? K : min(max(scid[m], -1), K);
+  for (int k = prev + 1; k <= cur; ++k) seg[k] = m;
+}
+
+template <int WORDS>
+__global__ void __launch_bounds__(C_THREADS)
+accumulate_chunks_kernel(const int8_t* __restrict__ codes,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ offset,
+                         const int64_t* __restrict__ order,
+                         const int32_t* __restrict__ scid,
+                         int32_t* __restrict__ seg,
+                         float* __restrict__ sums, float* __restrict__ part,
+                         int D, int K, int chunk_rows, int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int stage_bytes = C_ROWS * D;
+  uint8_t* ring = smem;
+  uint8_t* meta = smem + stages * stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(meta + stages * C_META);
+  uint64_t* empty = full + C_MAX_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the positions whose cid lies in [0, K), cut into chunks of chunk_rows
+  const int v0 = seg[0], v1 = seg[K];
+  const int n_chunks = (v1 - v0 + chunk_rows - 1) / chunk_rows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  int stage = 0;
+  uint32_t phase = 0;
+  if (warp == C_WARPS) {
+    // ---- producer warp: lane i takes member i of a stage. It reads the
+    // member's row number, cluster and sidecars, then asks for the whole
+    // row. It takes its chunks from a counter, so that no block waits on a
+    // slower one's share; after the last it sends one stage that names
+    // chunk -1. The rows are read once: they leave L2 first, which keeps the
+    // sidecars' sectors there for the seven other rows that share each
+    const uint64_t policy = l2_evict_first();
+    auto next_chunk = [&]() {
+      return __shfl_sync(0xffffffffu, lane == 0 ? atomicAdd(seg + K + 1, 1) : 0, 0);
+    };
+    for (int chunk = next_chunk();; chunk = next_chunk()) {
+      const bool stop = chunk >= n_chunks;
+      const int lo = v0 + chunk * chunk_rows;
+      const int hi = stop ? lo + 1 : min(lo + chunk_rows, v1);
+      for (int m0 = lo; m0 < hi; m0 += C_ROWS) {
+        const int cnt = stop ? 0 : min(C_ROWS, hi - m0);
+        const bool live = lane < cnt;
+        int64_t row = 0;
+        int c = -1;
+        float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live) {
+          row = order[m0 + lane];
+          c = scid[m0 + lane];
+          m.x = scale[row];
+          m.y = offset[row];
+          m.z = __int_as_float(c);
+        }
+        // the stage's edge: the clusters just before and after the chunk (no
+        // valid id is -1), the rows past the first that begin a run, and the
+        // chunk
+        int4 edge = make_int4(-1, -1, 0, stop ? -1 : chunk);
+        const int up = __shfl_up_sync(0xffffffffu, c, 1);
+        edge.z = (int)__ballot_sync(0xffffffffu, live && lane > 0 && c != up);
+        if (m0 == lo && lane == 0 && !stop) {
+          if (lo > v0) edge.x = scid[lo - 1];
+          if (hi < v1) edge.y = scid[hi];
+        }
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (live)
+          bulk_load_1d(ring + stage * stage_bytes + lane * D, codes + row * D, D,
+                       &full[stage], policy);
+        float4* ms = reinterpret_cast<float4*>(meta + stage * C_META);
+        if (live) ms[lane] = m;
+        if (lane == 0) *reinterpret_cast<int4*>(ms + C_ROWS) = edge;
+        __syncwarp();
+        if (lane == 0) mbar_expect_tx(&full[stage], cnt * D);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (stop) break;
+    }
+  } else {
+    // ---- consumers: thread t owns words t, t + 192, ... (4 dims each) of
+    // every member row of a chunk, added in the sorted order
+    const int tid = threadIdx.x;
+    // a thread whose words lie past D adds word 0 again and stores nothing
+    int off[WORDS];
+#pragma unroll
+    for (int w = 0; w < WORDS; ++w)
+      off[w] = 4 * (tid + w * C_CONSUMERS) < D ? 4 * (tid + w * C_CONSUMERS) : 0;
+    // a run's sum and its Kahan compensation
+    float run[WORDS][4], comp[WORDS][4];
+    auto clear = [&]() {
+#pragma unroll
+      for (int w = 0; w < WORDS; ++w)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) run[w][j] = comp[w][j] = 0.f;
+    };
+    auto flush = [&](float* dst) {
+#pragma unroll
+      for (int w = 0; w < WORDS; ++w) {
+        const int i = tid + w * C_CONSUMERS;
+        if (4 * i < D)
+          reinterpret_cast<float4*>(dst)[i] = make_float4(
+              __fsub_rn(run[w][0], comp[w][0]), __fsub_rn(run[w][1], comp[w][1]),
+              __fsub_rn(run[w][2], comp[w][2]), __fsub_rn(run[w][3], comp[w][3]));
+      }
+      clear();
+    };
+    clear();
+    int chunk = 0, m0 = 0, hi = 0;  // m0 >= hi: the next stage opens a chunk
+    int cur = -1, prev_c = -1, next_c = -1;
+    bool first = true;  // the running sum is the chunk's first run
+    for (;;) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* src = ring + stage * stage_bytes;
+      const float4* ms = reinterpret_cast<const float4*>(meta + stage * C_META);
+      const int4 edge = *reinterpret_cast<const int4*>(ms + C_ROWS);
+      if (m0 >= hi) {
+        chunk = edge.w;
+        if (chunk < 0) break;
+        m0 = v0 + chunk * chunk_rows;
+        hi = min(m0 + chunk_rows, v1);
+        prev_c = edge.x;
+        next_c = edge.y;
+        cur = -1;
+        first = true;
+      }
+      const int cnt = min(C_ROWS, hi - m0);
+      const uint32_t cuts = (uint32_t)edge.z;
+      for (int r = 0; r < cnt;) {
+        // rows r .. e - 1 are one run: `cuts` marks where the next begins
+        const uint32_t rest = cuts & (0xfffffffeu << r);
+        const int e = rest ? __ffs(rest) - 1 : cnt;
+        const int c = __float_as_int(ms[r].z);
+        if (c != cur) {
+          // a run ended inside the chunk: whole, unless it is the first run
+          // and began in an earlier chunk
+          if (cur >= 0) {
+            flush(first && cur == prev_c ? part + (size_t)(2 * chunk) * D
+                                         : sums + (size_t)cur * D);
+            first = false;
+          }
+          cur = c;
+        }
+        const uint8_t* p = src + r * D;
+#pragma unroll(WORDS > 2 ? 1 : 4)
+        for (; r < e; ++r, p += D) {
+          const float2 so = *reinterpret_cast<const float2*>(ms + r);
+#pragma unroll
+          for (int w = 0; w < WORDS; ++w) {
+            const uint32_t u = *reinterpret_cast<const uint32_t*>(p + off[w]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              // the plain version's roundings: offset + (scale * code)
+              const float x = (float)(int8_t)(u >> (8 * j));
+              const float y =
+                  __fsub_rn(__fadd_rn(so.y, __fmul_rn(so.x, x)), comp[w][j]);
+              const float t = __fadd_rn(run[w][j], y);
+              comp[w][j] = __fsub_rn(__fsub_rn(t, run[w][j]), y);
+              run[w][j] = t;
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      m0 += C_ROWS;
+      // the chunk's last run: a partial sum if its cluster began before the
+      // chunk (then it is also the first run) or goes on after it
+      if (m0 >= hi) {
+        const bool partial = (first && cur == prev_c) || cur == next_c;
+        flush(partial ? part + (size_t)(2 * chunk + (first ? 0 : 1)) * D
+                      : sums + (size_t)cur * D);
+      }
+    }
+  }
+}
+
+// One block a cluster: its count; zeros where it is empty; where it spans
+// chunks c0 .. c1, its partial sums added in chunk order, in f64. Chunk c0's
+// piece is that chunk's last run (slot 2 c0 + 1) unless the cluster begins
+// with the chunk; every later piece is a chunk's first run (slot 2 c)
+__global__ void __launch_bounds__(C_CONSUMERS)
+accumulate_finish_kernel(const int32_t* __restrict__ seg,
+                         const float* __restrict__ part,
+                         float* __restrict__ sums, float* __restrict__ counts,
+                         int D, int K, int chunk_rows) {
+  const int k = blockIdx.x;
+  const int v0 = seg[0], s = seg[k], e = seg[k + 1];
+  if (threadIdx.x == 0) counts[k] = (float)(e - s);
+  float4* out = reinterpret_cast<float4*>(sums + (size_t)k * D);
+  if (e == s) {
+    for (int i = threadIdx.x; 4 * i < D; i += C_CONSUMERS)
+      out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const int c0 = (s - v0) / chunk_rows, c1 = (e - 1 - v0) / chunk_rows;
+  if (c0 == c1) return;  // the chunk wrote the whole sum
+  const int head = s > v0 + c0 * chunk_rows ? 1 : 0;
+  for (int i = threadIdx.x; 4 * i < D; i += C_CONSUMERS) {
+    double a0 = 0., a1 = 0., a2 = 0., a3 = 0.;
+    for (int c = c0; c <= c1; ++c) {
+      const size_t slot = 2 * (size_t)c + (c == c0 ? head : 0);
+      const float4 p = reinterpret_cast<const float4*>(part + slot * D)[i];
+      a0 += p.x;
+      a1 += p.y;
+      a2 += p.z;
+      a3 += p.w;
+    }
+    out[i] = make_float4((float)a0, (float)a1, (float)a2, (float)a3);
+  }
+}
+
+// ---- the plain-load path (any D): one block a (cluster, 128 dims)
+
 constexpr int S_DIMS = 128;   // dims per block, 4 per lane
 constexpr int S_WARPS = 8;
 constexpr int S_THREADS = S_WARPS * 32;
@@ -396,7 +685,7 @@ constexpr int S_UNROLL = 4;   // member rows in flight per warp
 
 template <bool VEC>
 __global__ void __launch_bounds__(S_THREADS)
-kmeans_accumulate_kernel(const int8_t* __restrict__ codes,
+accumulate_loads_kernel(const int8_t* __restrict__ codes,
                          const float* __restrict__ scale_s,
                          const float* __restrict__ offset_s,
                          const int64_t* __restrict__ order,
@@ -511,15 +800,17 @@ extern "C" int vs_kmeans_assign(const void* codes, const void* scale,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vs_kmeans_accumulate(const void* codes, const void* scale_s,
-                                    const void* offset_s, const void* order,
-                                    const void* seg, void* sums, void* counts,
-                                    int D, int K, void* stream) {
+extern "C" int vs_kmeans_accumulate_loads(const void* codes,
+                                          const void* scale_s,
+                                          const void* offset_s,
+                                          const void* order, const void* seg,
+                                          void* sums, void* counts, int D,
+                                          int K, void* stream) {
   if (D <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(K, (D + S_DIMS - 1) / S_DIMS);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
 #define VS_LAUNCH(V)                                                          \
-  kmeans_accumulate_kernel<V><<<grid, S_THREADS, 0, st>>>(                    \
+  accumulate_loads_kernel<V><<<grid, S_THREADS, 0, st>>>(                    \
       static_cast<const int8_t*>(codes), static_cast<const float*>(scale_s),  \
       static_cast<const float*>(offset_s),                                    \
       static_cast<const int64_t*>(order), static_cast<const int64_t*>(seg),   \
@@ -529,5 +820,70 @@ extern "C" int vs_kmeans_accumulate(const void* codes, const void* scale_s,
   else
     VS_LAUNCH(false);
 #undef VS_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The chunked accumulate: the segment table, the chunk sums, the partials'
+// sum. `order` (int64) and `scid` (int32) are the stable sort of cid and its
+// sorted values; `seg` (int32 [K + 2]) and `part` (f32 [2 * ceil(N /
+// chunk_rows), D]) are scratch. stages 0 takes the rule's ring depth.
+extern "C" int vs_kmeans_accumulate(const void* codes, const void* scale,
+                                    const void* offset, const void* order,
+                                    const void* scid, void* seg, void* part,
+                                    void* sums, void* counts, int N, int D,
+                                    int K, int chunk_rows, int stages,
+                                    void* stream) {
+  const int words = (D / 4 + C_CONSUMERS - 1) / C_CONSUMERS;
+  if (N < 0 || D <= 0 || K <= 0 || D % 16 != 0 || words > C_MAX_WORDS ||
+      chunk_rows <= 0 || chunk_rows % C_ROWS != 0 || stages < 0 ||
+      stages > C_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  accumulate_segments_kernel<<<N / 256 + 1, 256, 0, st>>>(
+      static_cast<const int32_t*>(scid), N, K, static_cast<int32_t*>(seg));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  if (N > 0) {
+    const int stage_smem = C_ROWS * D + C_META;
+    if (stages == 0) {
+      // three blocks an SM where a ring of two stages or more fits in a
+      // third of its shared memory, else the deepest ring up to two stages
+      stages = (SMEM_MAX / 3 - 1024 - C_BARS) / stage_smem;
+      if (stages < 2) stages = min(2, (SMEM_MAX - 1024 - C_BARS) / stage_smem);
+      stages = min(stages, C_MAX_STAGES);
+    }
+    const int smem = stages * stage_smem + C_BARS;
+    if (stages < 1 || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    using Kernel = void (*)(const int8_t*, const float*, const float*,
+                            const int64_t*, const int32_t*, int32_t*, float*,
+                            float*, int, int, int, int);
+    Kernel fn = words <= 1   ? accumulate_chunks_kernel<1>
+                : words <= 2 ? accumulate_chunks_kernel<2>
+                : words <= 4 ? accumulate_chunks_kernel<4>
+                             : accumulate_chunks_kernel<8>;
+    int dev = 0, sms = 0, blocks = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(fn,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, fn, C_THREADS, smem)) != cudaSuccess)
+      return (int)e;
+    if (blocks < 1) return (int)cudaErrorInvalidValue;
+    const int max_chunks = (N + chunk_rows - 1) / chunk_rows;
+    fn<<<min(max_chunks, blocks * sms), C_THREADS, smem, st>>>(
+        static_cast<const int8_t*>(codes), static_cast<const float*>(scale),
+        static_cast<const float*>(offset), static_cast<const int64_t*>(order),
+        static_cast<const int32_t*>(scid), static_cast<int32_t*>(seg),
+        static_cast<float*>(sums), static_cast<float*>(part), D, K, chunk_rows,
+        stages);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  accumulate_finish_kernel<<<K, C_CONSUMERS, 0, st>>>(
+      static_cast<const int32_t*>(seg), static_cast<const float*>(part),
+      static_cast<float*>(sums), static_cast<float*>(counts), D, K, chunk_rows);
   return (int)cudaGetLastError();
 }

@@ -13,14 +13,22 @@ import numpy as np
 import torch
 
 
+# the caller's ask for a device: `cpu`, `cuda` or `cuda:N`. The port's
+# counterpart of the JAX_PLATFORMS=cpu that the JAX entry is driven with
+DEVICE_ENV = "VSTPU_DEVICE"
+
+
 def default_device() -> torch.device:
     """The first CUDA card when one exists, else the CPU."""
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def resolve(device) -> torch.device:
-    """`device` as a torch.device; None picks default_device()."""
-    return default_device() if device is None else torch.device(device)
+    """`device` as a torch.device; None takes the caller's ask in the
+    environment (VSTPU_DEVICE), and default_device() when there is none."""
+    if device is None:
+        device = os.environ.get(DEVICE_ENV) or default_device()
+    return torch.device(device)
 
 
 def hbm_budget(device) -> int | None:

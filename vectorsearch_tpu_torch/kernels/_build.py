@@ -99,12 +99,13 @@ def load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.vs_abi_version.argtypes = []
             lib.vs_abi_version.restype = i32
-            if lib.vs_abi_version() != 5:
+            if lib.vs_abi_version() != 6:
                 raise RuntimeError("kernel library ABI mismatch")
             for name, argtypes in (
                 ("vs_grouped_scores", [ptr] * 10 + [i32] * 6 + [ptr]),
                 ("vs_kmeans_assign", [ptr] * 7 + [i32] * 3 + [ptr]),
-                ("vs_kmeans_accumulate", [ptr] * 7 + [i32] * 2 + [ptr]),
+                ("vs_kmeans_accumulate", [ptr] * 9 + [i32] * 5 + [ptr]),
+                ("vs_kmeans_accumulate_loads", [ptr] * 7 + [i32] * 2 + [ptr]),
                 ("vs_flat_bands_s8", [ptr] * 8 + [i32] * 6 + [ptr]),
                 ("vs_flat_bands_bf16", [ptr] * 7 + [i32] * 6 + [ptr]),
             ):
