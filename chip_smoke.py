@@ -60,10 +60,29 @@ Phases (any failure exits non-zero before the last line is printed):
      band kernel, and FlatIndex.search(refine=32) beside them, on phase
      4's corpus, queries and truth: recall@10, no id twice in a result,
      and the wall time per B=512 search;
-  6. engine: upload, rebuild (Engine.refresh_centroids), search,
+  6. sharded (phase 4's corpus, build, queries and truth): ShardedIVF on 4
+     shards of the card and on default_mesh() at nprobe 1, 8, 64 and -1
+     (k=10, refine=32, B=512): recall@10 at the floors, the top-10 sets of
+     IVFIndex.search on the same centroids except at ties within 1e-6, no
+     id twice, and the wall per search beside the single-device index's;
+     on shard 0 of the 4 at nprobe 8 and 64, the scan kernel against its
+     plain version on the groups the search gives it (the pairs of clusters
+     other shards own grouped under the out-of-range id K: -inf, no codes
+     read), and grouped_scan's top-k with probe_valid against the same
+     function over the plain version (outside the phase's launch count);
+     ShardedFlat on the 4 shards (recall@10 >= 0.96); lloyd, 5 passes from
+     phase 4's centroids on the 4 shards and on one device (assignments
+     equal but for at most 1e-4 of the rows, the other clusters' centroids
+     within 1e-4), then build_centroids on the 4 shards with phase 4's
+     arguments; an Engine with default_mesh() whose rebuild installs the
+     replica, a search through it, a delete that drops it (the deleted
+     document never returns); and child processes, one a card (one on a
+     machine with one card), that join an `nccl` group through
+     maybe_initialize and search a ShardedIVF over global_mesh();
+  7. engine: upload, rebuild (Engine.refresh_centroids), search,
      search_many, delete and a snapshot reboot through Engine, with the
      deterministic noop embedder;
-  7. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
+  8. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
      this process, on a free localhost port over a temporary SQLite store
      and snapshot dir, with a deterministic embedder at D=768 (a text's
      first number names a document; its vector is bench.py's recipe).
@@ -79,14 +98,14 @@ Phases (any failure exits non-zero before the last line is printed):
      the card. Then `python -m vectorsearch_tpu_torch` with the noop
      embedder boots, answers an upload and a search, and exits 0 on
      SIGTERM;
-  8. the 10M build: bench_build.py's configuration, 10M x 768 clustered
+  9. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
      fixed seed, moved to host numpy once) -> build_centroids with k=4096
      and bench_build.py's arguments: build seconds, iterations, final
      churn, cluster sizes and peak device memory; then, outside the phase's
      launch counts, the same build under torch.profiler, its device time
      summed by kernel;
-  9. the kernels line, the card line, and the contract line. Each kernel's
+  10. the kernels line, the card line, and the contract line. Each kernel's
      entry has its bound (the larger of its bytes over 3.35 TB/s and its
      operations over the peak of their type, from this run's shapes), its
      share of that bound, and the time of one PyTorch call for the
@@ -94,10 +113,11 @@ Phases (any failure exits non-zero before the last line is printed):
      index_add_ of the f32 dequantized rows).
      The grouped scan's row is its time on the built index's store.
 
-Every kernel launch count is set to 0 just before each of phases 4-8 and
-read just after: phases 4, 6 and 7 must launch the grouped scan and both
-k-means kernels, phase 5 both flat band kernels, phase 8 both k-means
-kernels. The script imports only the port,
+Every kernel launch count is set to 0 just before each of phases 4-9 and
+read just after: phases 4, 6, 7 and 8 must launch the grouped scan and
+both k-means kernels (phase 6 the scan at least once a shard of every
+search on the card's 4 shards), phase 5 both flat band kernels, phase 9
+both k-means kernels. The script imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
 through vectorsearch_tpu_torch.host), and checks at the end that neither
 jax nor anything of the JAX package vectorsearch_tpu was imported.
@@ -198,10 +218,24 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+# the sharded phase: shards of one card for ShardedIVF, ShardedFlat and
+# Lloyd's, the probe widths, the passes of lloyd from phase 4's centroids,
+# the share of rows whose assignment may differ from one device's (near-ties
+# after passes of f32 sums in another order), the centroid tolerance of the
+# clusters none of them touch, and the score gap counted as a tie when a
+# top-10 set differs from IVFIndex's
+SHARDED_SHARDS = 4
+SHARDED_NPROBES = (1, 8, 64, -1)
+# the probe widths at which one shard's scan is held against its plain version
+SHARDED_CHECK_NPROBES = (8, 64)
+SHARDED_LLOYD_ITERS = 5
+LLOYD_MOVED_SHARE, LLOYD_CENTROID_ATOL = 1e-4, 1e-4
+TIE_SHARDED = 1e-6
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "flat": ("flat_bands_s8", "flat_bands_bf16"),
+    "sharded": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
@@ -493,16 +527,13 @@ def scan_edge_cases(torch, dev) -> float:
         qg, qsum = q.bfloat16(), q.sum(-1)
         bs = 128 if cap % 128 == 0 else 64
         inside = (gcl >= 0) & (gcl < kk)
-        # plain gathers codes[gcl]: hold it to the groups with a cluster, and
-        # the kernel's groups without one to -inf everywhere
         args = (qg, qsum, gcl, counts, codes, a, bv, bias)
-        out, bmax = gs.grouped_scores(*args, bs, True)
-        torch.cuda.synchronize()
+        err, out, bmax = check_scan(torch, gs, args, bs, f"scan edge {label}")
         if not (torch.isneginf(out[~inside]).all() and torch.isneginf(bmax[~inside]).all()):
             raise AssertionError(f"scan edge {label}: a group without a cluster scored")
-        kept = (qg[inside], qsum[inside], gcl[inside], counts, codes, a, bv, bias)
-        err, out_in, bmax_in = check_scan(torch, gs, kept, bs, f"scan edge {label}")
-        if not (torch.equal(out_in, out[inside]) and torch.equal(bmax_in, bmax[inside])):
+        again, bmax_again = gs.grouped_scores(*args, bs, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(again, out) and torch.equal(bmax_again, bmax)):
             raise AssertionError(f"scan edge {label}: two launches differ")
         worst = max(worst, err)
         log(f"scan edge {label}: K={kk} cap={cap} D={d} QT={qt} bs={bs} G={g}: "
@@ -1062,9 +1093,10 @@ def phase_flat_kernels(torch, dev, smi: str, ptxas: dict) -> list:
 
 def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERIES) -> dict:
     """bench.py's corpus through the port's build and search. The packed
-    corpus, the queries and the truth go on to phase_flat; the scan kernel
-    is timed on the built index's own store under "scan" (those launches
-    are taken out of the phase's count)."""
+    corpus, the queries and the truth go on to phase_flat, the build and
+    the index before any write to phase_sharded; the scan kernel is timed
+    on the built index's own store under "scan" (those launches are taken
+    out of the phase's count)."""
     from vectorsearch_tpu_torch.build import build_centroids
     from vectorsearch_tpu_torch.device import check_exact_f32
     from vectorsearch_tpu_torch.host import layout
@@ -1139,6 +1171,9 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
         f"cluster's count; folded sidecar rows "
         f"{sum(t.numel() * 4 for t in ivf.folded) / 2**20:.1f} MiB on {smi}")
 
+    # the sharded phase's inputs: this build, and the index before any write
+    sharded_inputs = (packed, ids, result.centroids, result.assignments, queries,
+                      truth_ids, ivf)
     # 10,000 inserts: each new row is its own top-1
     m = 10_000
     new = make_corpus(m, dim, 64, seed=7)
@@ -1169,7 +1204,7 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
         "k": ivf.k_clusters, "cap": ivf.cap, "self_top1": self_top1,
         "deleted_returned": returned, "n_live": ivf.n_live,
         "expected_live": n + m - gone.size, "flat_inputs": (packed, queries, truth),
-        "scan": scan, "search_profile": profile,
+        "sharded_inputs": sharded_inputs, "scan": scan, "search_profile": profile,
     }
 
 
@@ -1264,6 +1299,336 @@ def phase_flat(torch, dev, packed, queries, truth) -> dict:
     out["flatindex"]["wall_ms"] = wall_ms(lambda: flat.search(queries, k=TOPK, refine=REFINE))
     log(f"FlatIndex.search refine={REFINE}: recall@10 {out['flatindex']['recall']:.4f}, "
         f"{out['flatindex']['wall_ms']:.3f} ms per B={b} search")
+    return out
+
+
+def sharded_ivf_checks(got_s, got_i, want_s, want_i, truth_ids) -> dict:
+    """A sharded search's (scores, ids) against the single-device index's
+    on the same centroids and the truth: recall@10, rows with an id twice,
+    rows whose top-10 set differs other than at a tie (each id in one set
+    only scores within TIE_SHARDED of the row's 10th score), the largest
+    score difference, and whether every score is a finite cosine."""
+    rows = range(got_i.shape[0])
+    odd = 0
+    for r in rows:
+        cut = want_s[r, -1]
+        only = [(got_s[r], got_i[r], x) for x in set(got_i[r]) - set(want_i[r])]
+        only += [(want_s[r], want_i[r], x) for x in set(want_i[r]) - set(got_i[r])]
+        odd += any(abs(float(s[i == x][0]) - cut) > TIE_SHARDED for s, i, x in only)
+    return {
+        "recall": float(np.mean([len(set(got_i[r]) & set(truth_ids[r])) / TOPK for r in rows])),
+        "repeats": int(sum(len(set(got_i[r])) < TOPK for r in rows)),
+        "sets_differ": odd,
+        "max_score_diff": float(np.abs(got_s - want_s).max()),
+        "finite": bool(np.isfinite(got_s).all() and (np.abs(got_s) <= 1 + 1e-5).all()),
+    }
+
+
+def sharded_entry_check(world: int) -> dict:
+    """`world` child processes that join one process group through
+    maybe_initialize (`nccl` on cards), each driving one card (VSTPU_DEVICE
+    = cuda:rank; one process keeps the default), build a ShardedIVF over
+    global_mesh() and search it in lockstep against IVFIndex on the same
+    centroids on their own card: the collective path, at world size 1 on a
+    machine with one card."""
+    code = r"""
+import json, sys
+import numpy as np
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from vectorsearch_tpu_torch.host import layout
+from vectorsearch_tpu_torch.index import IVFIndex, assign_clusters
+from vectorsearch_tpu_torch.parallel import ShardedIVF
+from vectorsearch_tpu_torch.parallel.distributed import global_mesh, maybe_initialize
+
+world, rank = int(sys.argv[3]), int(sys.argv[4])
+assert maybe_initialize(sys.argv[2], world, rank)
+mesh = global_mesh(1 if world > 1 else None)
+data = cs.make_corpus(50_000, cs.DIM, 64, seed=3)
+packed, q = layout.pack_float(data), cs.make_queries(data, 256)
+ids = np.arange(1, 50_001, dtype=np.int64)
+cents = data[np.random.default_rng(4).choice(50_000, 64, replace=False)]
+assign = assign_clusters(packed, cents, device=mesh.devices[0])
+sh = ShardedIVF.build(mesh, packed, ids, cents, assignments=assign)
+one = IVFIndex.build(packed, ids, cents, assignments=assign, device=mesh.devices[0])
+same = []
+for nprobe in (1, 8, -1):
+    s1, i1 = sh.search(q, k=10, nprobe=nprobe, refine=32)
+    s2, i2 = one.search(q, k=10, nprobe=nprobe, refine=32)
+    same.append(float(np.mean([set(a) == set(b) for a, b in zip(i1, i2)])))
+print(json.dumps({"rank": rank, "backend": dist.get_backend(), "world": dist.get_world_size(),
+                  "shards": mesh.size, "device": str(mesh.devices[0]), "same_sets": same}))
+dist.destroy_process_group()
+"""
+    t0 = time.perf_counter()
+    coord = f"127.0.0.1:{free_port()}"
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ)
+        if world > 1 and "VSTPU_DEVICE" not in env:
+            env["VSTPU_DEVICE"] = f"cuda:{rank}"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)), coord,
+             str(world), str(rank)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        ))
+    ranks = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            ranks.append(json.loads(out.strip().splitlines()[-1]) if p.returncode == 0
+                         else {"rc": p.returncode, "stderr": err[-3000:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {"world": world, "s": time.perf_counter() - t0, "ranks": ranks}
+
+
+def sharded_scan_checks(torch, sh, queries, shard=0) -> dict:
+    """The grouped scan on one shard's store of `sh` (its cap from
+    headroom 1.0), at the probe lists ShardedIVF.search gives that shard at
+    each SHARDED_CHECK_NPROBES: the kernel against grouped_scores_ref on
+    the groups grouped_scan builds with probe_valid (check_scan; every group
+    of the out-of-range id K, the pairs of clusters other shards own, all
+    -inf), and grouped_scan's top-k scores against the same function with
+    the plain version in the kernel's place. Its launches are a check's,
+    not the main path's: the launch count is put back after. Returns each
+    nprobe's numbers; raises AssertionError on a disagreement."""
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
+
+    launches_before = gs.LAUNCHES
+    mesh, kk, cap = sh.mesh, sh.clusters_per_shard, sh.cap
+    q = torch.from_numpy(queries)
+    qn = [cosine.l2_normalize(q.to(d)) for d in mesh.devices]
+    x = qn[shard]
+    a, bv, bias = sh.folded[shard]
+    store = (sh.buckets[shard], sh.counts[shard], sh.bucket_mask[shard])
+    bs = 128 if cap % 128 == 0 else 64
+    out = {}
+    for nprobe in SHARDED_CHECK_NPROBES:
+        label = f"sharded scan, shard {shard} of {mesh.size}, nprobe={nprobe}"
+        local, valid = sh.probes(qn, min(nprobe, sh.k_clusters))[shard]
+        _, gcl, qidx, _ = gs.build_groups(torch.where(valid, local, kk), kk)
+        args = (x.bfloat16()[qidx], x.sum(-1)[qidx], gcl, sh.counts[shard],
+                sh.buckets[shard].codes, a, bv, bias)
+        err, scores, _ = check_scan(torch, gs, args, bs, label)
+        sentinel = gcl == kk
+        if not torch.isneginf(scores[sentinel]).all():
+            raise AssertionError(f"{label}: a group of another shard's clusters scored")
+        del scores
+
+        def scan():
+            return gs.grouped_scan(x, x.sum(-1), *store, local, max(TOPK, REFINE),
+                                   folded=sh.folded[shard], probe_valid=valid)[0]
+
+        got = scan()
+        kernel = gs.grouped_scores
+        gs.grouped_scores = gs.grouped_scores_ref
+        try:
+            want = scan()
+        finally:
+            gs.grouped_scores = kernel
+        live = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(got), live):
+            raise AssertionError(f"{label}: grouped_scan's -inf pattern differs from plain")
+        topk_err = float((got[live] - want[live]).abs().max()) if bool(live.any()) else 0.0
+        if topk_err > KERNEL_ATOL:
+            raise AssertionError(f"{label}: grouped_scan top-k |kernel - plain| {topk_err} "
+                                 f"> {KERNEL_ATOL}")
+        out[nprobe] = {"K": kk, "cap": cap, "invalid_pairs": float(1 - valid.float().mean()),
+                       "G": int(gcl.numel()), "G_sentinel": int(sentinel.sum()),
+                       "max_abs_err": err, "topk_max_abs_err": topk_err}
+        log(f"{label}: K={kk} cap={cap}, {out[nprobe]['invalid_pairs']:.3f} of the pairs "
+            f"not this shard's, {out[nprobe]['G_sentinel']} of {out[nprobe]['G']} groups "
+            f"under id K all -inf; kernel vs plain max_abs_err={err:.3g}, grouped_scan "
+            f"top-{max(TOPK, REFINE)} {topk_err:.3g} (atol {KERNEL_ATOL})")
+    gs.LAUNCHES = launches_before
+    return out
+
+
+def phase_sharded(torch, dev, smi, packed, ids, centroids, assignments, queries,
+                  truth_ids, single) -> dict:
+    """phase_index's corpus, build, queries and truth through the sharded
+    path: ShardedIVF on SHARDED_SHARDS shards of this card and on
+    default_mesh(), against the single-device index `single` on the same
+    centroids; ShardedFlat on the shards of this card; lloyd from one init
+    on those shards and on one device, then build_centroids on them; an
+    Engine with default_mesh() installing, using and dropping its replica;
+    and a child process on the collective path (sharded_entry_check). On
+    the shards of this card, one shard's scan is held against its plain
+    version (sharded_scan_checks)."""
+    from vectorsearch_tpu_torch.build import build_centroids, lloyd
+    from vectorsearch_tpu_torch.engine import Engine
+    from vectorsearch_tpu_torch.host import NoopAI, Store, layout
+    from vectorsearch_tpu_torch.parallel import Mesh, ShardedFlat, ShardedIVF, default_mesh
+
+    out = {"ivf": {}, "failures": [], "virtual_searches": 0, "scan_checks": {}}
+    fail = out["failures"].append
+    n = packed.codes.shape[0]
+    virtual = Mesh((dev,) * SHARDED_SHARDS)
+
+    def wall_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    want = {p: single.search(queries, k=TOPK, nprobe=p, refine=REFINE) for p in SHARDED_NPROBES}
+    single_ms = {p: wall_ms(lambda p=p: single.search(queries, k=TOPK, nprobe=p, refine=REFINE))
+                 for p in SHARDED_NPROBES}
+    b = queries.shape[0]
+    for label, mesh in ((f"{SHARDED_SHARDS} shards on {dev}", virtual),
+                        ("default_mesh()", default_mesh())):
+        t0 = time.perf_counter()
+        sh = ShardedIVF.build(mesh, packed, ids, centroids, assignments=assignments)
+        torch.cuda.synchronize()
+        r = {"shards": mesh.size, "cap": sh.cap, "build_s": time.perf_counter() - t0,
+             "by_nprobe": {}}
+        for p in SHARDED_NPROBES:
+            def search(p=p):
+                return sh.search(queries, k=TOPK, nprobe=p, refine=REFINE)
+
+            c = sharded_ivf_checks(*search(), *want[p], truth_ids)
+            c["ms"] = wall_ms(search)
+            c["qps"], c["single_ms"] = b / c["ms"] * 1e3, single_ms[p]
+            c["single_qps"] = b / single_ms[p] * 1e3
+            if mesh is virtual:
+                out["virtual_searches"] += 5  # the checked one, the warm-up, 3 timed
+            r["by_nprobe"][p] = c
+            floor = MIN_RECALL.get(p, MIN_RECALL_WIDE)
+            if c["recall"] < floor or c["repeats"] or c["sets_differ"] or not c["finite"]:
+                fail(f"ShardedIVF {label} nprobe={p}: {c}")
+            log(f"sharded ivf, {label}, nprobe={p}: recall@10 {c['recall']:.4f}, "
+                f"{c['sets_differ']} rows whose top-10 set differs from IVFIndex's past a "
+                f"tie, max |score diff| {c['max_score_diff']:.3g}; {c['ms']:.3f} ms a B={b} "
+                f"search ({c['qps']:.0f} QPS) beside the single-device index's "
+                f"{single_ms[p]:.3f} ms ({c['single_qps']:.0f} QPS) (host clock, "
+                f"synchronized, {smi})")
+        log(f"sharded ivf, {label}: {mesh.size} shards, cap {sh.cap}, built in "
+            f"{r['build_s']:.1f} s")
+        if mesh is virtual:
+            try:
+                out["scan_checks"] = sharded_scan_checks(torch, sh, queries)
+            except AssertionError as e:
+                fail(str(e))
+        out["ivf"][label] = r
+        del sh
+        torch.cuda.empty_cache()
+
+    flat = ShardedFlat.build(virtual, packed, ids)
+    s, got = flat.search(queries, k=TOPK)
+    out["flat"] = {
+        "recall": float(np.mean([len(set(got[r]) & set(truth_ids[r])) / TOPK
+                                 for r in range(b)])),
+        "repeats": int(sum(len(set(row)) < TOPK for row in got)),
+        "ms": wall_ms(lambda: flat.search(queries, k=TOPK)),
+    }
+    if out["flat"]["recall"] < MIN_RECALL_WIDE or out["flat"]["repeats"]:
+        fail(f"ShardedFlat: {out['flat']}")
+    log(f"sharded flat, {SHARDED_SHARDS} shards on {dev}: recall@10 "
+        f"{out['flat']['recall']:.4f}, {out['flat']['ms']:.3f} ms a B={b} search ({smi})")
+    del flat
+    torch.cuda.empty_cache()
+
+    # Lloyd's from one init (phase 4's centroids), SHARDED_LLOYD_ITERS
+    # passes, on the shards and on one device: the first pass assigns alike
+    # and the sums differ only in their order, so a later assignment may
+    # differ only where a row lies within that difference of a tie
+    t0 = time.perf_counter()
+    one = lloyd(packed, centroids, max_iters=SHARDED_LLOYD_ITERS, chunk=65_536,
+                tol_changes=-1, device=dev)
+    t1 = time.perf_counter()
+    got = lloyd(packed, centroids, max_iters=SHARDED_LLOYD_ITERS, chunk=65_536,
+                tol_changes=-1, mesh=virtual)
+    t2 = time.perf_counter()
+    moved = np.nonzero(got.assignments != one.assignments)[0]
+    touched = np.zeros(one.centroids.shape[0], bool)
+    touched[got.assignments[moved]] = touched[one.assignments[moved]] = True
+    err = float(np.abs(got.centroids - one.centroids)[~touched].max())
+    out["lloyd"] = {"one_s": t1 - t0, "sharded_s": t2 - t1, "moved": int(moved.size),
+                    "clusters_touched": int(touched.sum()), "max_centroid_err": err,
+                    "iterations": (one.iterations, got.iterations)}
+    if (moved.size > n * LLOYD_MOVED_SHARE or err > LLOYD_CENTROID_ATOL
+            or got.counts.sum() != n or got.iterations != SHARDED_LLOYD_ITERS):
+        fail(f"sharded lloyd: {out['lloyd']}")
+    log(f"sharded lloyd, {SHARDED_LLOYD_ITERS} passes from phase 4's centroids on "
+        f"{SHARDED_SHARDS} shards against one device: {moved.size} of {n} assignments "
+        f"differ (at most {LLOYD_MOVED_SHARE} of the rows); the centroids of the "
+        f"{int((~touched).sum())} clusters none of them touches differ by at most "
+        f"{err:.3g} (atol {LLOYD_CENTROID_ATOL}); {t2 - t1:.2f} s against "
+        f"{t1 - t0:.2f} s, uploads included")
+    t0 = time.perf_counter()
+    res = build_centroids(
+        packed, k=K_GEN, min_cluster_size=max(1, (n // K_GEN) // 10),
+        max_iters=10, superset_iters=4, chunk=65_536, mesh=virtual,
+    )
+    out["build"] = {"s": time.perf_counter() - t0, "k": int(res.centroids.shape[0]),
+                    "iterations": res.iterations, "assigned": int(res.counts.sum()),
+                    "finite": bool(np.isfinite(res.centroids).all())}
+    if not (out["build"]["finite"] and out["build"]["assigned"] == n
+            and 1 < out["build"]["k"] <= 2 * K_GEN):
+        fail(f"build_centroids on the mesh: {out['build']}")
+    log(f"sharded build_centroids (phase 4's arguments) on {SHARDED_SHARDS} shards: "
+        f"{out['build']['s']:.1f} s, {out['build']['k']} centroids, "
+        f"{res.iterations} iters")
+
+    # the engine's read replica: installed by a rebuild, used by a search,
+    # dropped by a delete; the deleted document never comes back
+    with tempfile.TemporaryDirectory(prefix="vs_smoke_sharded_") as tmp:
+        store = Store(os.path.join(tmp, "store.db"))
+        eng = Engine(store, NoopAI(seed=0), mesh=default_mesh(), device=dev)
+        docs = [{"name": f"doc{i}", "document": {"text": f"body {i}"}} for i in range(2_000)]
+        for i in range(0, len(docs), 500):
+            eng.upload("o", "c", docs[i : i + 500])
+        eng.refresh_centroids(target_cluster_size=200)
+        cat = store.get_category(store.get_owner("o").id, "c")
+        state = eng._state_for(cat.id, create=False)
+        replica = state.sharded
+        calls = []
+        if replica is not None:
+            real = replica.search
+            object.__setattr__(replica, "search",
+                               lambda *a, **kw: calls.append(1) or real(*a, **kw))
+        hits = eng.search("o", "c", "some text", count=10, centroids=-1)
+        victim = hits[0].document_id if hits else None
+        eng.delete_document("o", "c", victim)
+        dropped = state.sharded is None
+        after = eng.search_many("o", "c", [f"again {i}" for i in range(64)], count=20,
+                                centroids=-1)
+        eng.refresh_centroids(target_cluster_size=200)
+        again = eng.search_many("o", "c", [f"more {i}" for i in range(64)], count=20,
+                                centroids=-1)
+        out["engine"] = {
+            "installed": replica is not None, "searched_through": len(calls),
+            "hits": len(hits), "dropped_by_delete": dropped,
+            "reinstalled": state.sharded is not None,
+            "deleted_returned": sum(h.document_id == victim for p in after + again for h in p),
+            "pages_full": all(len(p) == 20 for p in after + again),
+        }
+        eng.close()
+        store.close()
+    e = out["engine"]
+    if not (e["installed"] and e["searched_through"] == 1 and e["hits"] == 10
+            and e["dropped_by_delete"] and e["reinstalled"] and not e["deleted_returned"]
+            and e["pages_full"]):
+        fail(f"engine with a mesh: {e}")
+    log(f"sharded engine: {e}")
+
+    world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    out["entry"] = ent = sharded_entry_check(world)
+    if not all(r.get("backend") == "nccl" and r.get("world") == world
+               and r.get("shards") == world and min(r.get("same_sets", [0])) >= 0.99
+               for r in ent["ranks"]):
+        fail(f"process group of {world}: {ent}")
+    log(f"sharded, a process group of {world} in child processes "
+        f"({ent['s']:.1f} s): {ent['ranks']}")
     return out
 
 
@@ -1801,7 +2166,9 @@ def main() -> int:
         after: the main path's own launches."""
         grouped_scan.LAUNCHES = km.ASSIGN_LAUNCHES = km.ACCUMULATE_LAUNCHES = 0
         tf.S8_LAUNCHES = tf.BF16_LAUNCHES = 0
+        t0 = time.perf_counter()
         out = fn()
+        log(f"the {phase} phase took {time.perf_counter() - t0:.1f} s")
         launches[phase] = {"grouped_scores": grouped_scan.LAUNCHES,
                            "kmeans_assign": km.ASSIGN_LAUNCHES,
                            "kmeans_accumulate": km.ACCUMULATE_LAUNCHES,
@@ -1823,6 +2190,12 @@ def main() -> int:
         "by_nprobe_index_store": scan, "ptxas": ptxas["grouped_scores"],
         "ptxas_warnings": ptxas["grouped_scores_warnings"]})
     flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
+    shd = run("sharded", lambda: phase_sharded(torch, dev, smi, *idx.pop("sharded_inputs")))
+    # the scan held against plain on one shard's store of the sharded path
+    entries[0]["sharded_shard_checks"] = shd["scan_checks"]
+    entries[0]["max_abs_err"] = max([entries[0]["max_abs_err"],
+                                     *(c["max_abs_err"] for c in shd["scan_checks"].values())])
+    torch.cuda.empty_cache()
     eng = run("engine", lambda: phase_engine(torch, dev))
     srv = run("server", lambda: phase_server(torch, dev, smi))
     torch.cuda.empty_cache()
@@ -1839,6 +2212,12 @@ def main() -> int:
         idle = [k for k in names if not launches[phase][k]]
         if idle:
             failures.append(f"not launched in the {phase} phase: {idle}")
+    failures += [f"sharded phase: {f}" for f in shd["failures"]]
+    # the scan once a shard of every search on the card's shards
+    if launches["sharded"]["grouped_scores"] < SHARDED_SHARDS * shd["virtual_searches"]:
+        failures.append(f"sharded phase: {launches['sharded']['grouped_scores']} scan "
+                        f"launches for {shd['virtual_searches']} searches of "
+                        f"{SHARDED_SHARDS} shards")
     for name, r in flat.items():
         if r["recall"] < MIN_RECALL_WIDE:
             failures.append(f"flat {name}: recall@10 {r['recall']:.4f} < {MIN_RECALL_WIDE}")

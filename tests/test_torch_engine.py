@@ -126,3 +126,56 @@ def test_port_rebuild_and_stats(engines):
     vec = layout.unpack(layout.take(packed, np.array([7])))
     s, i = ivf.search(vec, k=1, nprobe=1, refine=8)
     assert i[0, 0] == ids[7] and s[0, 0] > 0.999
+
+
+def test_sharded_serving_lifecycle():
+    """A mesh engine (8 CPU shards; JAX's on its 8-device virtual mesh):
+    a rebuild installs a sharded read replica, a write drops it, and
+    searches stay right throughout, with the same pages on both engines."""
+    from test_engine import WordHashAI
+
+    from vectorsearch_tpu.engine import EngineCache as JaxEngineCache
+    from vectorsearch_tpu.parallel import default_mesh
+    from vectorsearch_tpu_torch.engine import EngineCache
+    from vectorsearch_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(("cpu",) * 8)
+    built = []
+    for port in (True, False):
+        store = PortStore(":memory:") if port else Store(":memory:")
+        eng = (Engine(store, WordHashAI(), cache=EngineCache(ttl=0.0), mesh=mesh, device="cpu")
+               if port else
+               JaxEngine(store, WordHashAI(), cache=JaxEngineCache(ttl=0.0), mesh=default_mesh(8)))
+        eng.upload("alice", "docs", [
+            {"name": f"d{i}", "document": {"text": f"topic{i % 4} words {i}"}} for i in range(40)
+        ])
+        cat = store.get_category(store.get_owner("alice").id, "docs")
+        state = eng._state_for(cat.id, create=False)
+        assert state.sharded is None  # no rebuild yet
+
+        eng.refresh_centroids(target_cluster_size=10, chunk=64)
+        assert state.sharded is not None
+        hits = eng.search("alice", "docs", "topic2 words", count=3, centroids=-1)
+        assert hits and "topic2" in hits[0].document["text"]
+        pages = [page(hits)]
+
+        # a write drops the replica; searches go to the single-device index
+        eng.upload("alice", "docs", [{"name": "new", "document": {"text": "fresh topic9"}}])
+        assert state.sharded is None
+        hits = eng.search("alice", "docs", "fresh topic9", count=1, centroids=-1)
+        assert hits and hits[0].name == "new"
+        pages.append(page(hits))
+        gone = pages[0][0][0]
+        eng.delete_document("alice", "docs", gone)
+        eng.refresh_centroids(target_cluster_size=10, chunk=64)
+        assert state.sharded is not None
+        pages.append(page(eng.search("alice", "docs", "topic2 words", count=20, centroids=-1)))
+        assert gone not in [d for d, _ in pages[-1]]
+        eng.delete_document("alice", "docs", pages[-1][0][0])
+        assert state.sharded is None
+        pages.append(page(eng.search("alice", "docs", "topic2 words", count=20, centroids=-1)))
+        built.append(pages)
+        eng.close()
+        store.close()
+    for a, b in zip(*built, strict=True):
+        assert_pages_match(a, b)

@@ -248,3 +248,84 @@ def test_scan_with_folded_rows_from_the_caller_equals_folding_here():
         pt.bucket_mask, nprobe=3, k=10, epilogue="flat", folded=folded)
     np.testing.assert_array_equal(own[0], s.numpy())
     np.testing.assert_array_equal(own[1], gslot.numpy())
+
+
+def _probes(b, nprobe, kk, seed):
+    """Seeded probe lists (distinct clusters a query) with about 40% of
+    the probes not valid, and one query whose probes are all invalid."""
+    rng = np.random.default_rng(seed)
+    probed = np.argsort(rng.random((b, kk)), axis=1)[:, :nprobe].astype(np.int32)
+    valid = rng.random((b, nprobe)) > 0.4
+    valid[0] = False
+    return probed, valid
+
+
+@pytest.mark.parametrize("nprobe", [1, 3, 16])
+@pytest.mark.parametrize("epilogue", ["flat", "blockexact"])
+def test_probe_valid_matches_pallas_probed(epilogue, nprobe):
+    """grouped_scan with probe_valid (on the CPU, the kernel's plain
+    version on groups whose invalid pairs carry the out-of-range cluster
+    id) against pallas_scan.ivf_scan_pallas_probed in interpret mode: an
+    invalid probe scores -inf on both sides."""
+    jx, pt, v = make_pair()
+    q = (v[::53][:9] + 0.01).astype(np.float32)
+    probed, valid = _probes(len(q), nprobe, pt.k_clusters, seed=nprobe)
+    s_j, g_j = pallas_scan.ivf_scan_pallas_probed(
+        jnp.asarray(q), jx.buckets, jx.counts_dev, jx.bucket_mask,
+        jnp.asarray(probed), jnp.asarray(valid), 8, interpret=True,
+        approx=False, epilogue=epilogue,
+    )
+    qn = torch.nn.functional.normalize(torch.from_numpy(q), dim=-1)
+    s_p, g_p = grouped_scan.grouped_scan(
+        qn, qn.sum(-1), pt.buckets, pt.counts_dev, pt.bucket_mask,
+        torch.from_numpy(probed), 8, epilogue=epilogue,
+        probe_valid=torch.from_numpy(valid),
+    )
+    assert np.isneginf(s_p[0].numpy()).all()
+    assert_topk_match(s_p.numpy(), g_p.numpy(), np.asarray(s_j), np.asarray(g_j))
+    # a finite hit comes from a valid probe of its query
+    cap = pt.cap
+    for r in range(len(q)):
+        fin = np.isfinite(s_p[r].numpy())
+        assert set(g_p[r].numpy()[fin] // cap) <= set(probed[r][valid[r]])
+
+
+def test_gather_formulation_with_probe_valid_matches_jax():
+    """The port's _scan_probed (the XLA gather formulation) with
+    probe_valid against the JAX package's, and against the grouped scan."""
+    from vectorsearch_tpu.index import ivf as jax_ivf
+
+    jx, pt, v = make_pair()
+    q = (v[::41][:10] + 0.01).astype(np.float32)
+    probed, valid = _probes(len(q), 6, pt.k_clusters, seed=7)
+    s_j, g_j = jax_ivf._scan_probed(
+        jnp.asarray(q), jx.buckets, jx.counts_dev, jx.bucket_mask,
+        jnp.asarray(probed), jnp.asarray(valid), 10,
+    )
+    s_p, g_p = port_ivf._scan_probed(
+        torch.from_numpy(q), pt.buckets, pt.counts_dev, pt.bucket_mask,
+        torch.from_numpy(probed), 10, probe_valid=torch.from_numpy(valid),
+    )
+    assert_topk_match(s_p.numpy(), g_p.numpy(), np.asarray(s_j), np.asarray(g_j))
+    qn = torch.nn.functional.normalize(torch.from_numpy(q), dim=-1)
+    s_g, g_g = grouped_scan.grouped_scan(
+        qn, qn.sum(-1), pt.buckets, pt.counts_dev, pt.bucket_mask,
+        torch.from_numpy(probed), 10, probe_valid=torch.from_numpy(valid),
+    )
+    assert_topk_match(s_p.numpy(), g_p.numpy(), s_g.numpy(), g_g.numpy(), atol=1e-5)
+
+
+def test_plain_kernel_scores_groups_without_a_cluster_as_neg_inf():
+    """A group whose cluster id lies outside [0, K) scores -inf in every
+    slot and block (the kernel reads nothing for it); the other groups are
+    what they are without it."""
+    qg, qsum, gcl, cnt, codes, a, bv, bias = _kernel_inputs((128, 70, 33), seed=4)
+    args = [torch.from_numpy(x) for x in (qsum, gcl, cnt, codes, a, bv, bias)]
+    base, bmax_base = grouped_scan.grouped_scores(qg, *args, 64, True)
+    gcl_out = gcl.copy()
+    gcl_out[[1, 4]] = (-1, 3)
+    args[1] = torch.from_numpy(gcl_out)
+    out, bmax = grouped_scan.grouped_scores(qg, *args, 64, True)
+    assert torch.isneginf(out[[1, 4]]).all() and torch.isneginf(bmax[[1, 4]]).all()
+    keep = [0, 2, 3, 5, 6]
+    assert torch.equal(out[keep], base[keep]) and torch.equal(bmax[keep], bmax_base[keep])

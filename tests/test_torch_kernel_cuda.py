@@ -154,6 +154,38 @@ def test_ivf_search_on_card_matches_cpu(cuda):
     assert grouped_scan.LAUNCHES >= before + 3
 
 
+def test_sharded_ivf_on_two_shards_of_one_card_matches_cpu(cuda):
+    """ShardedIVF on 2 shards of one card (the grouped-scan kernel on each
+    shard, its invalid probes grouped under an out-of-range cluster)
+    against the same replica on 2 CPU shards (the plain version): coarse
+    and refined scores atol 1e-4 / 1e-5, the same ids above the near-ties
+    at each row's cut, one kernel launch a shard a search."""
+    from vectorsearch_tpu_torch.index import assign_clusters
+    from vectorsearch_tpu_torch.parallel import Mesh, ShardedIVF
+
+    rng = np.random.default_rng(3)
+    k, d = 41, 128
+    centers = rng.normal(size=(k, d)).astype(np.float32) * 4
+    v = (centers[:, None] + rng.normal(size=(k, 60, d))).reshape(-1, d)
+    packed = layout.pack_float(v.astype(np.float32))
+    ids = np.arange(1, len(v) + 1, dtype=np.int64)
+    assign = assign_clusters(packed, centers, device="cpu")
+    q = v[::53] + 0.01
+    gpu = ShardedIVF.build(Mesh((cuda, cuda)), packed, ids, centers, assignments=assign)
+    cpu = ShardedIVF.build(Mesh(("cpu", "cpu")), packed, ids, centers, assignments=assign)
+    before, searches = grouped_scan.LAUNCHES, 0
+    for nprobe in (1, 4, 33, -1):  # 21 * cap 1024 > 32768 columns: blockexact
+        for refine, atol in ((0, 1e-4), (32, 1e-5)):
+            s_g, i_g = gpu.search(q, k=10, nprobe=nprobe, refine=refine)
+            s_c, i_c = cpu.search(q, k=10, nprobe=nprobe, refine=refine)
+            searches += 1
+            np.testing.assert_allclose(s_g, s_c, atol=atol)
+            for sg, ig, sc, ic in zip(s_g, i_g, s_c, i_c):
+                cut = sg.min() + atol
+                assert set(ig[sg > cut]) == set(ic[sc > cut])
+    assert grouped_scan.LAUNCHES == before + 2 * searches
+
+
 def test_no_library_raises(cuda, monkeypatch):
     """No kernel library -> an error, never the plain version, from every
     wrapper."""

@@ -3,10 +3,11 @@
 In a subprocess with the deterministic fake embedder (VSTPU_NOOP_AI=1): a
 missing config writes a sample and exits 1; the entry boots, serves an
 upload and a search over HTTP and HTTPS, exits 0 on SIGTERM, and serves
-the same documents again after a reboot; a `mesh` config exits non-zero
-at once. Every boot asks for the CPU by name (VSTPU_DEVICE=cpu): with the
-variable unset and no card, run() names it on stderr and returns non-zero
-before it opens the store. In process: a SQLite store and snapshot dir written by the JAX
+the same documents again after a reboot; a `mesh` config serves through
+its sharded replica, and one over several processes is refused. Every
+boot asks for the CPU by name (VSTPU_DEVICE=cpu): with the variable unset
+and no card, run() names it on stderr and returns non-zero before it
+opens the store. In process: a SQLite store and snapshot dir written by the JAX
 Engine boot the port's server (from the snapshot) and answer the same
 searches, and a store and snapshots written by the port's Engine boot the
 JAX Engine with the same answers.
@@ -157,17 +158,79 @@ def test_boot_serve_sigterm_and_reboot(tmp_path):
         _stop(proc, log_path)
 
 
-@pytest.mark.parametrize("mesh", [{"shard_serving": True},
-                                  {"coordinator": "127.0.0.1:9999", "num_processes": 2}])
-def test_mesh_config_exits_at_once(tmp_path, mesh):
+def _get(conn, path):
+    conn.request("GET", path)
+    r = conn.getresponse()
+    return r.status, json.loads(r.read())
+
+
+@pytest.mark.parametrize("coordinator", [False, True], ids=["one-process", "coordinator"])
+def test_mesh_config_serves_through_the_replica(tmp_path, coordinator):
+    """`mesh.shard_serving` with 2 CPU shards (VSTPU_DEVICE=cpu), alone or
+    after joining a process group of one (`mesh.coordinator`,
+    num_processes 1, gloo): boot 1 takes an upload; boot 2's startup
+    rebuild installs the sharded replica (/api/stats), a search answers
+    through it, and SIGTERM exits 0."""
+    mesh = {"shard_serving": True, "devices": 2}
+    if coordinator:
+        mesh.update(coordinator=f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0)
     path, cfg = _config(tmp_path, mesh=mesh)
-    out = subprocess.run(
-        [sys.executable, "-m", "vectorsearch_tpu_torch", str(path)],
-        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=ROOT, VSTPU_NOOP_AI="1"),
-        capture_output=True, text=True, timeout=120,
-    )
-    assert out.returncode != 0 and "not ported" in out.stderr
-    assert not (tmp_path / "store.db").exists()  # nothing was served or stored
+    port = int(cfg["server"]["http_address"].rsplit(":", 1)[1])
+    log_path = tmp_path / "entry.log"
+    docs = [{"name": f"doc{i}", "document": {"text": f"body {i}"}} for i in range(6)]
+    query = {"owner": "o", "category": "c", "text": "body", "count": 10, "centroids": -1}
+
+    proc = _entry(path, log_path)
+    try:
+        _wait_listening(proc, port, log_path)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        status, up = _post(conn, "/api/upload", {"owner": "o", "category": "c",
+                                                 "documents": docs})
+        assert status == 200 and len(up["document_ids"]) == 6
+        conn.close()
+    finally:
+        _stop(proc, log_path)
+
+    proc = _entry(path, log_path)
+    try:
+        _wait_listening(proc, port, log_path)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        deadline = time.monotonic() + 60
+        while True:
+            status, stats = _get(conn, "/api/stats")
+            cats = stats["categories"]
+            if cats and all(c["replica_shards"] == 2 for c in cats.values()):
+                break
+            assert time.monotonic() < deadline, (stats, log_path.read_text())
+            time.sleep(0.2)
+        status, res = _post(conn, "/api/search", query)
+        assert status == 200
+        assert sorted(d["document_id"] for d in res["documents"]) == up["document_ids"]
+        conn.close()
+    finally:
+        _stop(proc, log_path)
+    log = log_path.read_text()
+    assert log.count("sharded serving over 2 shards (2 on this process, 1 ranks)") == 2
+    assert ("process group: rank 0 of 1" in log) == coordinator
+
+
+def test_shard_serving_over_several_processes_is_refused(tmp_path, monkeypatch, capsys):
+    """`mesh.shard_serving` with num_processes 2: each rank would answer its
+    own requests, while a sharded search is a collective every rank must
+    enter. One line on stderr that names the setting and exit 2, before the
+    process group forms or the store opens."""
+    monkeypatch.setenv("VSTPU_DEVICE", "cpu")
+    _, cfg = _config(tmp_path, mesh={
+        "shard_serving": True, "devices": 2, "coordinator": f"127.0.0.1:{_free_port()}",
+        "num_processes": 2, "process_id": 0,
+    })
+    cfg["log_level"] = "error"
+    rc = entry.run(config_mod.Config.parse(json.dumps(cfg)), WordHashAI())
+    err = capsys.readouterr().err.strip().splitlines()
+    assert rc == 2
+    assert len(err) == 1 and "mesh.num_processes 2" in err[0]
+    assert not torch.distributed.is_initialized()
+    assert not (tmp_path / "store.db").exists()
 
 
 def test_no_card_and_no_ask_refuses_to_serve(tmp_path, monkeypatch, capsys):

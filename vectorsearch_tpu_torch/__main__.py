@@ -14,8 +14,16 @@ The device is the CUDA card, or what VSTPU_DEVICE asks for (`cpu`, `cuda`,
 names the variable and exits non-zero before it opens the store: it never
 carries on on the CPU because it found no GPU.
 
-Sharded serving and multi-host runtimes (the config's `mesh` section) are
-not ported: such a config exits at once, non-zero.
+The config's `mesh` section (main.py:192-222): with `mesh.coordinator`
+the process joins the process group (parallel/distributed.py) before its
+first device use; with `mesh.shard_serving` the engine gets
+`global_mesh(mesh.devices or None)`: this process's first `devices` cards
+(all for 0), or that many CPU shards (1 for 0) when the CPU is asked for,
+joined to the other ranks by the group. Rebuilds then run on the mesh and
+install a sharded read replica that searches use until the next write.
+Sharded serving over several processes is refused (exit 2): each process
+answers its own HTTP requests, while every sharded search and rebuild is
+a collective that all ranks must enter in the same order.
 """
 from __future__ import annotations
 
@@ -32,22 +40,24 @@ import torch
 from . import config as config_mod
 from .api import TLSManager, build_app
 from .api.http import HTTPServer
-from .device import DEVICE_ENV, resolve, to_device
+from .device import DEVICE_ENV, NoDeviceError, resolve, to_device
 from .embed import AI
 from .engine import Engine
 from .kernels import cosine
 from .logger import configure, sugar
+from .parallel.distributed import global_mesh, maybe_initialize
 from .quant import codec, layout
 from .store import Store
 
-MESH_NOT_PORTED = (
-    "sharded serving (mesh.coordinator / mesh.shard_serving) is not ported "
-    "to vectorsearch_tpu_torch yet: remove the config's mesh section, or "
-    "serve it with main.py"
-)
 NO_CARD = (
     "no CUDA card ({asked}): vectorsearch_tpu_torch serves on an NVIDIA GPU; "
     "set VSTPU_DEVICE=cpu to serve on the CPU"
+)
+MESH_ACROSS_PROCESSES = (
+    "mesh.shard_serving with mesh.num_processes {n} is not supported: each "
+    "process answers its own requests, and a sharded search is a collective "
+    "that every rank must enter together; serve sharded from one process "
+    "(num_processes 1) over its local cards"
 )
 
 
@@ -200,25 +210,43 @@ def run(cfg: config_mod.Config, ai=None, stop: threading.Event | None = None) ->
     `stop`; returns the exit code. `ai` defaults to the config's providers
     (the deterministic fake with VSTPU_NOOP_AI=1)."""
     configure(cfg.log_level)
-    if cfg.mesh.coordinator or cfg.mesh.shard_serving:
-        sugar().error(MESH_NOT_PORTED)
-        print(MESH_NOT_PORTED, file=sys.stderr)
+    if cfg.mesh.shard_serving and cfg.mesh.num_processes > 1:
+        print(MESH_ACROSS_PROCESSES.format(n=cfg.mesh.num_processes), file=sys.stderr)
         return 2
     if ai is None:
         ai = AI.from_config(cfg, use_noop=os.environ.get("VSTPU_NOOP_AI") == "1")
-    device = resolve(None)
     asked = os.environ.get(DEVICE_ENV)
+    try:
+        device = resolve(None)
+    except NoDeviceError:
+        device = None
     # the CPU serves only when asked for by name, and a card only when
     # there is one: the entry never carries on where it found no GPU
-    if not (torch.cuda.is_available() if device.type == "cuda" else asked):
+    if device is None or (device.type == "cuda" and not torch.cuda.is_available()):
         refusal = NO_CARD.format(asked=f"{DEVICE_ENV}={asked}" if asked else f"{DEVICE_ENV} unset")
         print(refusal, file=sys.stderr)
         return 3
+    if cfg.mesh.coordinator:
+        # join the process group before any device use
+        maybe_initialize(
+            cfg.mesh.coordinator, cfg.mesh.num_processes, cfg.mesh.process_id
+        )
+        sugar().info(
+            "process group: rank %d of %d via %s",
+            cfg.mesh.process_id, cfg.mesh.num_processes, cfg.mesh.coordinator,
+        )
     sugar().info(
         "device %s (%s)", device,
         torch.cuda.get_device_name(device) if device.type == "cuda"
         else f"asked for with {DEVICE_ENV}",
     )
+    mesh = None
+    if cfg.mesh.shard_serving:
+        mesh = global_mesh(cfg.mesh.devices or None)
+        sugar().info(
+            "sharded serving over %d shards (%d on this process, %d ranks)",
+            mesh.size, mesh.n_local, mesh.world,
+        )
 
     store = build_store(cfg)
     store_server = _serve_store(cfg, store) if cfg.database.serve_store else None
@@ -227,7 +255,9 @@ def run(cfg: config_mod.Config, ai=None, stop: threading.Event | None = None) ->
     workers = []
     try:
         preftest(device)
-        engine = Engine(store, ai, snapshot_dir=cfg.database.snapshots, device=device)
+        engine = Engine(
+            store, ai, snapshot_dir=cfg.database.snapshots, mesh=mesh, device=device
+        )
 
         # one-shot background work at startup (reference: main.go:92): the
         # kernel build and a warm search, then the centroid rebuild

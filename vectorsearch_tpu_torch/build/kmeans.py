@@ -14,6 +14,11 @@ Lloyd's on a sample, keep the k largest clusters. Clusters below
 min_size are dropped and their members reassigned; oversized clusters
 are split by a local k-means (balance).
 
+On a mesh (`mesh=`, parallel/mesh.py) the staged rows are split over
+the shards; in each Lloyd's pass every shard runs assign and accumulate on
+its own device, and the sums, counts and changes are added in shard order
+(all_reduced across ranks), as the JAX module psums them under shard_map.
+
 Differences from the JAX module: the fused device `while_loop` is a
 Python loop that reads the change count every iteration (one small sync
 per iteration on a local card). The centroid padding to a size class
@@ -35,9 +40,11 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..device import resolve, to_device, to_host
+from ..device import resolve, to_device, to_host, upload_packed
 from ..kernels import kmeans as kmeans_kernels
 from ..logger import sugar
+from ..parallel.distributed import gather_shards, put_sharded_rows, sum_shards
+from ..parallel.mesh import Mesh
 from ..quant.layout import PackedVectors
 from .progress import tracker as _progress
 
@@ -60,26 +67,57 @@ def _pow2_class(k: int) -> int:
     return c
 
 
-def prepare_tiles(packed: PackedVectors, chunk: int, device=None):
+def prepare_tiles(packed: PackedVectors, chunk: int, device=None, mesh: Mesh | None = None):
     """Stage the corpus on the device once. Passing the result to several
     lloyd() calls avoids re-uploading the corpus per phase. Chunks are
-    views of the staged rows, so nothing is padded."""
-    device = resolve(device)
-    rows = PackedVectors(
-        *[
-            to_device(to_host(a), device, dt)
-            for a, dt in zip(
-                packed, (torch.int8, torch.float32, torch.float32, torch.float32)
-            )
-        ]
-    )
-    return rows, chunk
+    views of the staged rows, so nothing is padded.
+
+    Returns (rows, chunk): rows is a PackedVectors of tensors on `device`,
+    or with `mesh` a list of one PackedVectors a local shard, each on its
+    shard's device (mesh.local_blocks: the last shards may hold fewer rows
+    or none); `device` is then not used."""
+    host = PackedVectors(*[to_host(a) for a in packed])
+    if mesh is not None:
+        return put_sharded_rows(host, mesh), chunk
+    return upload_packed(host, resolve(device)), chunk
 
 
-def _assign_and_accumulate(rows: PackedVectors, chunk: int, centroids):
-    """One full Lloyd's pass: returns (sums f32[K,D], counts f32[K],
-    assignments int32[N])."""
-    return kmeans_kernels.assign_accumulate(rows, centroids, chunk)
+def _assign_and_accumulate(shards: list, chunk: int, centroids, mesh: Mesh | None):
+    """One full Lloyd's pass over every shard's rows: returns (sums
+    f32[K,D] and counts f32[K] on the first shard's device, summed over
+    the shards, and each shard's assignments int32[rows])."""
+    parts = []
+    for rows in shards:
+        if rows.n:
+            parts.append(kmeans_kernels.assign_accumulate(
+                rows, centroids.to(rows.codes.device), chunk
+            ))
+        else:  # a shard past the end of the rows
+            dev = rows.codes.device
+            parts.append((
+                torch.zeros(centroids.shape, dtype=torch.float32, device=dev),
+                torch.zeros(centroids.shape[0], dtype=torch.float32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+            ))
+    if mesh is None:
+        return parts[0][0], parts[0][1], [parts[0][2]]
+    return (sum_shards(mesh, [p[0] for p in parts]),
+            sum_shards(mesh, [p[1] for p in parts]), [p[2] for p in parts])
+
+
+def _gather_assignments(mesh: Mesh | None, cids: list, n: int) -> np.ndarray:
+    """Every row's assignment, in row order, from each shard's block."""
+    if mesh is None:
+        return to_host(cids[0])
+    per = -(-n // mesh.size)
+    padded = [torch.nn.functional.pad(c, (0, per - c.shape[0]), value=-1) for c in cids]
+    return to_host(gather_shards(mesh, padded)).reshape(-1)[:n]
+
+
+def _staged_device(prepared) -> torch.device:
+    """The device of prepare_tiles' rows (a mesh's first shard's)."""
+    rows = prepared[0]
+    return (rows[0] if isinstance(rows, list) else rows).codes.device
 
 
 def lloyd(
@@ -90,29 +128,34 @@ def lloyd(
     tol_changes: int = 0,
     prepared=None,
     device=None,
+    mesh: Mesh | None = None,
 ) -> KMeansResult:
     """Run Lloyd's iterations from the given centroids until the number of
     assignment changes is <= tol_changes (reference converges on unchanged
-    quantized bytes — dnc/k_means.go:67-117 — we converge on assignments)."""
+    quantized bytes — dnc/k_means.go:67-117 — we converge on assignments).
+    With `mesh`, `prepared` must come from prepare_tiles on the same mesh."""
     if prepared is None:
-        prepared = prepare_tiles(packed, chunk, device)
+        prepared = prepare_tiles(packed, chunk, device, mesh)
     rows, chunk = prepared
-    dev = rows.codes.device
+    shards = rows if mesh is not None else [rows]
+    n = np.shape(packed.codes)[0]
+    dev = shards[0].codes.device
     cents = to_device(np.asarray(init_centroids, np.float32), dev)
     counts = torch.zeros((cents.shape[0],), dtype=torch.float32, device=dev)
-    prev = torch.full((rows.n,), -1, dtype=torch.int32, device=dev)
+    prev = [torch.full((r.n,), -1, dtype=torch.int32, device=r.codes.device) for r in shards]
     it, changes = 0, 2**31 - 1
     while it < max_iters and changes > tol_changes:
-        sums, counts, cids = _assign_and_accumulate(rows, chunk, cents)
+        sums, counts, cids = _assign_and_accumulate(shards, chunk, cents, mesh)
         cents = torch.where(
             counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], cents
         )
-        changes = int((cids != prev).sum())
+        moved = [(c != p).sum() for c, p in zip(cids, prev)]
+        changes = int(moved[0] if mesh is None else sum_shards(mesh, moved))
         prev = cids
         it += 1
     return KMeansResult(
         centroids=to_host(cents),
-        assignments=to_host(prev),
+        assignments=_gather_assignments(mesh, prev, n),
         counts=to_host(counts).astype(np.int64),
         iterations=it,
         final_changes=changes if it else -1,
@@ -144,6 +187,7 @@ def kmeans(
     seed: int = 0,
     prepared=None,
     device=None,
+    mesh: Mesh | None = None,
 ) -> KMeansResult:
     """Superset-initialized k-means (reference: dnc/k_means.go:19-207).
 
@@ -157,8 +201,8 @@ def kmeans(
         raise ValueError("kmeans on empty dataset")
     k = max(1, min(k, n))
     if prepared is None:
-        prepared = prepare_tiles(packed, chunk, device)
-    device = prepared[0].codes.device
+        prepared = prepare_tiles(packed, chunk, device, mesh)
+    device = _staged_device(prepared)
     k_super = min(k * max(1, superset_mul), n)
     # the superset only seeds the init, so its size rounds DOWN to a
     # power-of-two class (as in the JAX package): 4x seeds cost half of
@@ -180,12 +224,13 @@ def kmeans(
             ):
                 phase1 = lloyd(
                     _take(packed, pick), init, max_iters=superset_iters,
-                    chunk=min(chunk, 8_192), device=device,
+                    chunk=min(chunk, 8_192), device=device, mesh=mesh,
                 )
         else:
             with _progress.phase("superset", f"{k_super} seeds / full corpus"):
                 phase1 = lloyd(
                     packed, init, max_iters=superset_iters, prepared=prepared,
+                    mesh=mesh,
                 )
         top = np.argsort(-phase1.counts, kind="stable")[:k]
         init = phase1.centroids[top]
@@ -194,7 +239,7 @@ def kmeans(
             k_super, min(sample_n, n), time.perf_counter() - t0,
         )
     with _progress.phase("lloyd", f"k={k}, n={n}"):
-        return lloyd(packed, init, max_iters=max_iters, prepared=prepared)
+        return lloyd(packed, init, max_iters=max_iters, prepared=prepared, mesh=mesh)
 
 
 def build_centroids(
@@ -208,11 +253,16 @@ def build_centroids(
     superset_iters: int = 25,
     balance_rounds: int = 1,
     device=None,
+    mesh: Mesh | None = None,
 ) -> KMeansResult:
     """Full index build: k = ceil(n / target), k-means, drop small clusters,
     reassign and recenter, then split oversized clusters (balance).
     Replaces dnc.KMeansDivideAndConquer (dnc/dnc.go:35-263 +
-    dropSmallCentroids + recenterDbCentroid + the recursive size bound)."""
+    dropSmallCentroids + recenterDbCentroid + the recursive size bound).
+    With `mesh` the superset, main, drop-small and balance passes run on
+    its shards; a balance round's sub-splits (a sample of one cluster's
+    members) run on its first device, as the JAX module runs them off the
+    mesh."""
     n = np.shape(packed.codes)[0]
     if k is None:
         k = max(1, -(-n // target_cluster_size))
@@ -221,11 +271,11 @@ def build_centroids(
 
     t0 = time.perf_counter()
     with _progress.phase("upload", f"{n} rows -> device"):
-        prepared = prepare_tiles(packed, chunk, device)
+        prepared = prepare_tiles(packed, chunk, device, mesh)
     t_prep = time.perf_counter()
     result = kmeans(
         packed, k, max_iters=max_iters, chunk=chunk, seed=seed,
-        superset_iters=superset_iters, prepared=prepared,
+        superset_iters=superset_iters, prepared=prepared, mesh=mesh,
     )
     t_kmeans = time.perf_counter()
     sugar().info(
@@ -247,11 +297,11 @@ def build_centroids(
             # then recenter once more for the new assignment
             result = lloyd(
                 packed, result.centroids[~small], max_iters=1,
-                tol_changes=-1, prepared=prepared,
+                tol_changes=-1, prepared=prepared, mesh=mesh,
             )
             result = lloyd(
                 packed, result.centroids, max_iters=1, tol_changes=-1,
-                prepared=prepared,
+                prepared=prepared, mesh=mesh,
             )
         sugar().info(
             "build: drop-small (%d dropped) %.1fs",
@@ -285,13 +335,13 @@ def build_centroids(
                 sub_res = kmeans(
                     _take(packed, members), k_sub, max_iters=10,
                     superset_mul=1, chunk=chunk, seed=seed + int(ci),
-                    device=prepared[0].codes.device,
+                    device=_staged_device(prepared),
                 )
                 new_centroids.extend(list(sub_res.centroids))
             t_subs = time.perf_counter()
             result = lloyd(
                 packed, np.stack(new_centroids), max_iters=2,
-                tol_changes=-1, prepared=prepared,
+                tol_changes=-1, prepared=prepared, mesh=mesh,
             )
             sugar().info(
                 "build: balance round (%d split, subs %.1fs, reassign %.1fs)",

@@ -198,14 +198,15 @@ class ServerConfig:
 
 @dataclass
 class MeshConfig:
-    """TPU-native addition: device mesh for sharded serving/builds.
+    """Device mesh for sharded serving/builds.
 
-    Multi-host: set `coordinator` ("host0:port"), `num_processes`, and
-    `process_id` on every instance; jax.distributed.initialize runs before
-    first device use and the mesh then spans every host's chips
-    (parallel/distributed.py, SURVEY.md §2.8 last row)."""
+    Multi-process: set `coordinator` ("host0:port"), `num_processes`, and
+    `process_id` on every instance; the torch.distributed process group
+    forms before first device use and the mesh then spans every process's
+    shards (parallel/distributed.py, SURVEY.md §2.8 last row)."""
 
-    devices: int = 0  # 0 = all (global, after distributed init) devices
+    # shards a process drives: 0 = all its cards (one CPU shard on the CPU)
+    devices: int = 0
     shard_serving: bool = False  # shard the serving index over the mesh
     coordinator: str = ""  # "" = single-host (no distributed runtime)
     num_processes: int = 1

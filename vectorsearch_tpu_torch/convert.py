@@ -8,15 +8,20 @@ import; a port tensor through `device.to_host`), and `ivf_from_arrays` /
 `flat_from_arrays` build the port's indexes from them on a given device.
 The tests use it to hold port searches against JAX searches on identical
 buckets, with no k-means variance between the two.
+
+The sharded indexes need no converter: `parallel.ShardedIVF.build` and
+`ShardedFlat.build` take the same numpy host arrays as the JAX package's
+(packed rows, ids, centroids and assignments), so state carries across
+as those arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .device import resolve, to_device, to_host
+from .device import resolve, to_device, to_host, upload_packed
 from .index.flat import FlatIndex
-from .index.ivf import IVFIndex, _upload
+from .index.ivf import IVFIndex
 from .kernels import cosine
 from .quant.layout import PackedVectors
 
@@ -50,7 +55,7 @@ def flat_from_arrays(arrays: dict, device=None, prefix: str = "spill_") -> FlatI
     mask = np.asarray(arrays[prefix + "mask"], np.bool_)
     n = int(arrays[prefix + "n"])
     return FlatIndex(
-        packed=_upload(
+        packed=upload_packed(
             PackedVectors(*[np.asarray(arrays[prefix + f]) for f in _FIELDS]),
             device,
         ),
@@ -71,7 +76,7 @@ def ivf_from_arrays(arrays: dict, device=None) -> IVFIndex:
     return IVFIndex(
         centroids=cents,
         centroids_n=cosine.l2_normalize(cents),
-        buckets=_upload(
+        buckets=upload_packed(
             PackedVectors(*[np.asarray(arrays[f]) for f in _FIELDS]), device
         ),
         bucket_mask=to_device(mask, device),

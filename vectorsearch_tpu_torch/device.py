@@ -12,22 +12,34 @@ import os
 import numpy as np
 import torch
 
+from .quant.layout import PackedVectors
 
 # the caller's ask for a device: `cpu`, `cuda` or `cuda:N`. The port's
 # counterpart of the JAX_PLATFORMS=cpu that the JAX entry is driven with
 DEVICE_ENV = "VSTPU_DEVICE"
 
+NO_DEVICE = (
+    "no CUDA card and no {env}: vectorsearch_tpu_torch runs on an NVIDIA "
+    "GPU; pass a device, or set {env}=cpu to run on the CPU"
+).format(env=DEVICE_ENV)
 
-def default_device() -> torch.device:
-    """The first CUDA card when one exists, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+class NoDeviceError(RuntimeError):
+    """No device was named, none was asked for in the environment, and
+    there is no CUDA card to take."""
 
 
 def resolve(device) -> torch.device:
-    """`device` as a torch.device; None takes the caller's ask in the
-    environment (VSTPU_DEVICE), and default_device() when there is none."""
+    """`device` as a torch.device. None takes the caller's ask in the
+    environment (VSTPU_DEVICE), else the first CUDA card; with neither it
+    raises NoDeviceError. The CPU is used only when asked for by name: a
+    missing card never turns into a silent CPU run."""
     if device is None:
-        device = os.environ.get(DEVICE_ENV) or default_device()
+        device = os.environ.get(DEVICE_ENV)
+        if not device:
+            if not torch.cuda.is_available():
+                raise NoDeviceError(NO_DEVICE)
+            device = "cuda"
     return torch.device(device)
 
 
@@ -61,6 +73,18 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
         # torch tensors must be writable
         a = torch.from_numpy(np.require(a, requirements="W"))
     return a.to(device=device, dtype=dtype)
+
+
+# the device dtypes of packed rows' fields: int8 codes, f32 scale / offset /
+# inv_norm
+PACKED_DTYPES = (torch.int8, torch.float32, torch.float32, torch.float32)
+
+
+def upload_packed(packed: PackedVectors, device) -> PackedVectors:
+    """Packed rows (host arrays or tensors) on `device` in PACKED_DTYPES."""
+    return PackedVectors(
+        *[to_device(a, device, dt) for a, dt in zip(packed, PACKED_DTYPES)]
+    )
 
 
 def pin_exact_f32() -> None:

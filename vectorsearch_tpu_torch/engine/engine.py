@@ -1,7 +1,7 @@
 """Engine: upload / search / chat / fetch / delete orchestration.
 
 Port of vectorsearch_tpu/engine/engine.py onto the PyTorch index and
-build, single device (the sharded read replica is not ported yet). As in
+build, with the sharded read replica of parallel/sharded.py. As in
 the JAX package, this is the replacement for the reference's server/ package
 (server/upload.go, search.go, chat.go, fetch.go, delete.go). The defining
 architectural change (SURVEY.md §1 note): the reference is
@@ -35,6 +35,7 @@ from ..device import hbm_budget, resolve, to_host
 from ..embed.base import AIProvider
 from ..index import IVFIndex
 from ..logger import next_txid, sugar
+from ..parallel import ShardedIVF
 from ..quant import codec, layout
 from ..quant.layout import PackedVectors
 from ..store import Store, snapshots
@@ -114,6 +115,10 @@ class CategoryState:
     doc_map: DocMap = field(default_factory=DocMap)  # emb id -> doc id
     lock: threading.RLock = field(default_factory=threading.RLock)
     build_lock: threading.Lock = field(default_factory=threading.Lock)
+    # read replica sharded over the mesh: built at rebuild time and dropped
+    # by any write (single writer + sharded reader, SURVEY.md §2.8 "DB read
+    # replicas" row); searches take it while it is there
+    sharded: object | None = None
     # upload coalescing (see Engine.upload): pending jobs + queue lock
     upload_queue: list = field(default_factory=list)
     upload_qlock: threading.Lock = field(default_factory=threading.Lock)
@@ -191,17 +196,17 @@ class Engine:
         mesh=None,
         device=None,
     ):
-        """`mesh` must be None: the sharded read replica is not ported yet.
+        """`mesh`: an optional parallel.Mesh. When set, index rebuilds run
+        their k-means on it and also build a cluster-sharded read replica
+        (parallel/sharded.py) that searches use until the next write.
 
-        `device`: where the indexes live (default: the CUDA card when
-        present, else the CPU)."""
+        `device`: where the single-device indexes live; None takes
+        device.resolve(None) (VSTPU_DEVICE, else the CUDA card), which
+        raises before the store is touched when there is neither."""
         import uuid
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh) is not ported to the PyTorch engine yet"
-            )
         self.device = resolve(device)
+        self.mesh = mesh
         self.store = store
         self.ai = ai
         self.snapshot_dir = snapshot_dir
@@ -810,6 +815,7 @@ class Engine:
                 [np.asarray(e, np.int64) for _, e, _, _ in surviving]
             )
         state.ivf = state.ivf.insert(ins_packed, ins_emb, cids=ins_cids)
+        state.sharded = None  # the replica is stale until the next rebuild
         state.dirty = True
         for j, emb_ids, _, _ in surviving:
             per_emb_doc = [
@@ -844,6 +850,7 @@ class Engine:
                     state.ivf = state.ivf.compact(
                         hbm_budget=self._budget_for(category_id)
                     )
+                    state.sharded = None
         except Exception as e:
             sugar().warning("post-upload compaction failed: %s", e)
 
@@ -910,8 +917,10 @@ class Engine:
                 # Degrade to no index; the staleness check reloads from
                 # SQL/snapshot on next boot or sync.
                 state.ivf = None
+                state.sharded = None
                 raise
             state.ivf = new
+            state.sharded = None
             state.dirty = True
             sugar().info(
                 "category %d re-pack done: stage %.1fs, gap %.1fs, spill "
@@ -962,10 +971,15 @@ class Engine:
         # into ONE device dispatch (engine/batcher.py) — the TPU-native
         # equivalent of the reference's per-request goroutine concurrency
         # (server/search.go:45).
-        # the probed candidate pool is bounded by nprobe*cap (+spill)
+        # the probed candidate pool is bounded by nprobe*cap (+spill; the
+        # replica has none)
+        target = state.sharded if state.sharded is not None else ivf
         nprobe_eff = nprobe if nprobe > 0 else ivf.k_clusters
         nprobe_eff = max(1, min(nprobe_eff, ivf.k_clusters))
-        pool = min(nprobe_eff * ivf.cap + ivf.spill.live, ivf.n_live)
+        pool = nprobe_eff * target.cap
+        if isinstance(target, IVFIndex):
+            pool += target.spill.live
+        pool = min(pool, ivf.n_live)
         while True:
             k_req = k
             with state.search_pass():
@@ -980,7 +994,9 @@ class Engine:
                         "index unavailable: rebuilding after a failed "
                         "re-pack; retry shortly"
                     )
-                target = ivf_t
+                target = (
+                    state.sharded if state.sharded is not None else ivf_t
+                )
                 scores_row, ids_row = self._batcher.submit(
                     (id(target), k_req, nprobe),
                     target,
@@ -1152,7 +1168,7 @@ class Engine:
         with state.search_pass():
             # resolve inside the gate (see _window_hits): a frozen-store
             # re-pack frees the pre-gap index's device buffers
-            target = state.ivf
+            target = state.sharded if state.sharded is not None else state.ivf
             scores, ids = self._batcher.submit_many(
                 list(queries),
                 lambda qb: target.search(qb, k=k, nprobe=nprobe, refine=k),
@@ -1312,6 +1328,7 @@ class Engine:
         if state is not None and state.ivf is not None and emb_ids:
             with state.lock:
                 state.ivf = state.ivf.remove_ids(np.asarray(emb_ids, np.int64))
+                state.sharded = None
                 state.dirty = True
                 for e in emb_ids:
                     state.doc_map.pop(e, None)
@@ -1383,6 +1400,7 @@ class Engine:
                     st.ivf = fresh.ivf
                     st.centroid_db_ids = fresh.centroid_db_ids
                     st.doc_map = fresh.doc_map
+                    st.sharded = None
                     st.dirty = fresh.dirty  # fresh load saved its own snapshot
                 self.cache.invalidate_all()
                 reloaded.append(cid)
@@ -1416,7 +1434,7 @@ class Engine:
                         continue
                     dummy = np.zeros((1, cur.dim), np.float32)
                     dummy[0, 0] = 1.0
-                    cur.search(dummy, k=k, nprobe=1, refine=k)
+                    (st.sharded or cur).search(dummy, k=k, nprobe=1, refine=k)
                 sugar().info("warmed category %d", st.category_id)
             except Exception as e:
                 sugar().warning("warmup failed for %d: %s", st.category_id, e)
@@ -1439,6 +1457,8 @@ class Engine:
                 "dim": ivf.dim if ivf else 0,
                 "hbm_bytes": ivf.hbm_bytes if ivf else 0,
                 "doc_map_entries": len(st.doc_map),
+                # shards of the sharded read replica searches use; 0: none
+                "replica_shards": st.sharded.mesh.size if st.sharded else 0,
             }
         from ..build.progress import tracker as _progress
 
@@ -1489,6 +1509,7 @@ class Engine:
             packed, ids = ivf.export_live()
             if len(ids) == 0:
                 return False
+            # The engine's mesh drives the k-means build by default.
             # Progress (phases, ETA) surfaces in /api/stats "build" and
             # heartbeat logs while this runs (build/progress.py;
             # reference: dnc/dnc.go:81-90 mpb bars).
@@ -1497,7 +1518,8 @@ class Engine:
             _progress.begin(len(ids), category=category_id)
             try:
                 result = build_centroids(
-                    packed, device=self.device, **build_kwargs
+                    packed, device=self.device,
+                    mesh=build_kwargs.pop("mesh", self.mesh), **build_kwargs,
                 )
             finally:
                 _progress.end()
@@ -1547,12 +1569,15 @@ class Engine:
                 )
                 state.ivf = new_ivf
                 state.centroid_db_ids = list(new_db_ids)
+                state.sharded = None
 
-            # Phase 3 (no lock): snapshot, warm. Post-build host
+            # Phase 3 (no lock): replica, snapshot, warm. Post-build host
             # arrays come from the PRE-build export adjusted by the
             # reconciliation deltas (removed rows masked out, added rows
             # appended from the small extract_rows gather) — never a
-            # second full device export of the whole store.
+            # second full device export of the whole store. The replica is
+            # built from these POST-reconciliation arrays, so rows that
+            # changed during the build are in it.
             if added.size or removed.size:
                 keep = ~np.isin(ids, removed) if removed.size else (
                     np.ones(len(ids), bool)
@@ -1569,6 +1594,15 @@ class Engine:
             else:
                 snap_packed, snap_ids = packed, ids
                 snap_assign = np.asarray(result.assignments)
+            if self.mesh is not None:
+                sharded = ShardedIVF.build(
+                    self.mesh, snap_packed, snap_ids, result.centroids,
+                    assignments=snap_assign,
+                )
+                with state.lock:
+                    # only install if nothing was written since the swap
+                    if state.ivf is new_ivf:
+                        state.sharded = sharded
             self.cache.centroids.invalidate(category_id)
             try:
                 self._write_snapshot(
@@ -1598,7 +1632,7 @@ class Engine:
                 dummy = np.zeros((1, new_ivf.dim), np.float32)
                 dummy[0, 0] = 1.0
                 k = _k_class(10)
-                new_ivf.search(dummy, k=k, nprobe=1, refine=k)
+                (state.sharded or new_ivf).search(dummy, k=k, nprobe=1, refine=k)
             except Exception:
                 pass
             return True

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..device import resolve, to_device, to_host
+from ..device import PACKED_DTYPES, resolve, to_device, to_host
 from ..kernels import cosine
 from ..quant.layout import PackedVectors
 
@@ -125,8 +125,7 @@ class FlatIndex:
         packed = _zeros(cap, self.dim, dev)
         mask = torch.zeros((cap,), dtype=torch.bool, device=dev)
         lo, hi = self.n, self.n + m
-        dtypes = (torch.int8, torch.float32, torch.float32, torch.float32)
-        for dst, src, upd, dt in zip(packed, self.packed, new, dtypes):
+        for dst, src, upd, dt in zip(packed, self.packed, new, PACKED_DTYPES):
             dst[:lo] = src[:lo]
             dst[lo:hi] = to_device(upd, dev, dt)
         mask[:lo] = self.mask[:lo]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..device import check_exact_f32, resolve, to_device, to_host
+from ..device import check_exact_f32, resolve, to_device, to_host, upload_packed
 from ..kernels import cosine, grouped_scan
 from ..quant.layout import PackedVectors
 from .flat import FlatIndex
@@ -55,13 +55,17 @@ def _flat_view(buckets: PackedVectors) -> PackedVectors:
     )
 
 
-def _scan_probed(queries, buckets: PackedVectors, counts, bucket_mask, probed, k):
+def _scan_probed(
+    queries, buckets: PackedVectors, counts, bucket_mask, probed, k, probe_valid=None
+):
     """Bucket scan over an explicit probe list by gathering the probed
     buckets (the JAX package's XLA formulation, ivf.py:50-109). Kept as a
     second plain formulation that the tests hold the grouped scan
     against; the search path never takes it.
 
-    probed: int32 [B, m]. Returns (scores[B,k], global_slot[B,k])."""
+    probed: int32 [B, m]; probe_valid: bool [B, m] or None (False entries
+    are scanned but score -inf, as in the JAX function). Returns
+    (scores[B,k], global_slot[B,k])."""
     b, nprobe = probed.shape
     kk, cap, d = buckets.codes.shape
     qn = cosine.l2_normalize(queries.float())
@@ -75,6 +79,8 @@ def _scan_probed(queries, buckets: PackedVectors, counts, bucket_mask, probed, k
     )
     col = torch.arange(cap, device=scores.device)
     valid = (col[None, :] < counts[flat][:, None]) & bucket_mask[flat]
+    if probe_valid is not None:
+        valid = valid & probe_valid.reshape(-1, 1)
     scores = torch.where(valid, scores, cosine.NEG_INF).view(b, nprobe * cap)
     k_eff = min(k, nprobe * cap)
     best, pos = torch.topk(scores, k_eff, dim=-1)
@@ -140,13 +146,6 @@ def _exhaustive_refined(
     if not refine:
         return s[:, :k], idx[:, :k]
     return cosine.rescore_topk(queries, flat, s, idx, k, valid=mask)
-
-
-def _upload(packed: PackedVectors, device) -> PackedVectors:
-    dtypes = (torch.int8, torch.float32, torch.float32, torch.float32)
-    return PackedVectors(
-        *[to_device(a, device, dt) for a, dt in zip(packed, dtypes)]
-    )
 
 
 @dataclass(frozen=True)
@@ -448,7 +447,7 @@ class IVFIndex:
 
     def assign(self, new: PackedVectors) -> np.ndarray:
         """Nearest-centroid cluster index for each new row."""
-        rows = _upload(PackedVectors(*[to_host(a) for a in new]), self.device)
+        rows = upload_packed(PackedVectors(*[to_host(a) for a in new]), self.device)
         _, cid = cosine.nearest_centroid(rows, self.centroids_n)
         return to_host(cid).astype(np.int64)
 
@@ -486,7 +485,7 @@ class IVFIndex:
         if fits.any():
             sel = np.nonzero(fits)[0]
             dev = self.device
-            rows = _upload(PackedVectors(*[a[sel] for a in new_host]), dev)
+            rows = upload_packed(PackedVectors(*[a[sel] for a in new_host]), dev)
             c_t = torch.from_numpy(cid[sel]).to(dev)
             s_t = torch.from_numpy(slot[sel]).to(dev)
             buckets = PackedVectors(*[a.clone() for a in self.buckets])
@@ -684,7 +683,7 @@ def assign_clusters(
     host = PackedVectors(*[to_host(a) for a in packed])
     parts = []
     for start in range(0, host.n, chunk):
-        sub = _upload(
+        sub = upload_packed(
             PackedVectors(*[a[start : start + chunk] for a in host]), device
         )
         _, cid = cosine.nearest_centroid(sub, cents)

@@ -88,7 +88,9 @@ def grouped_scores_ref(qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax)
     cap=3072, D=768 would be 4.7 GB as int8.
 
     It scores every slot and needs `counts` for nothing; on CPU tensors it
-    asserts the kernel's precondition on it (see grouped_scores)."""
+    asserts the kernel's precondition on it (see grouped_scores). A group
+    whose cluster id lies outside [0, K) scores -inf everywhere, as in the
+    kernel."""
     g, qt, d = qg.shape
     kk, cap, _ = codes.shape
     if counts.device.type == "cpu":
@@ -100,15 +102,18 @@ def grouped_scores_ref(qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax)
     step = max(1, (256 << 20) // max(1, cap * d * 4))
     check_exact_f32(qg)
     for g0 in range(0, g, step):
-        c = gcl[g0 : g0 + step].long()
+        gc = gcl[g0 : g0 + step].long()
+        c = gc.clamp(0, kk - 1)
         dots = torch.bmm(
             qg[g0 : g0 + step].float(), codes[c].float().transpose(1, 2)
         )  # [gc, QT, cap]
-        out[g0 : g0 + step] = (
+        scores = (
             dots * a[c][:, None, :]
             + qsum[g0 : g0 + step][:, :, None] * bv[c][:, None, :]
             + bias[c][:, None, :]
         )
+        inside = (gc >= 0) & (gc < kk)
+        out[g0 : g0 + step] = torch.where(inside[:, None, None], scores, cosine.NEG_INF)
     bmax = out.view(g, qt, cap // bs, bs).amax(dim=-1) if want_bmax else None
     return out, bmax
 
@@ -127,7 +132,8 @@ def grouped_scores(
     every slot r >= counts[c] (and at tombstones), which fold_sidecars
     guarantees. The kernel reads no code and no sidecar of a 128-column
     tile that starts at or past counts[c] and writes -inf there, which
-    under the precondition is what the plain version computes.
+    under the precondition is what the plain version computes. A group
+    whose gcl lies outside [0, K) reads nothing and is -inf everywhere.
     """
     global LAUNCHES
     dev = _build.launch_device(
@@ -261,11 +267,16 @@ def ivf_scan_grouped(
 
 def grouped_scan(
     qn, qsum, buckets: PackedVectors, counts, bucket_mask, probed, k: int,
-    epilogue: str = "auto", folded=None,
+    epilogue: str = "auto", folded=None, probe_valid=None,
 ):
     """Group build, kernel and epilogue over an explicit probe list
-    (pallas_scan._grouped_scan without probe_valid). `folded`: see
-    ivf_scan_grouped."""
+    (pallas_scan._grouped_scan). `folded`: see ivf_scan_grouped.
+
+    probe_valid: bool [B, nprobe] or None. A pair whose probe is not valid
+    scores -inf (the sharded path's probes of clusters another shard owns):
+    it is grouped under the out-of-range cluster id K, for which the kernel
+    reads no codes and writes -inf. The JAX kernel scans such pairs and
+    masks them after (pallas_scan.py:588-592)."""
     b, nprobe = probed.shape
     kk, cap, _ = buckets.codes.shape
     if epilogue == "auto":
@@ -273,7 +284,8 @@ def grouped_scan(
     elif epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
 
-    qt, gcl, qidx, pair_slot = build_groups(probed, kk)
+    grouped = probed if probe_valid is None else torch.where(probe_valid, probed, kk)
+    qt, gcl, qidx, pair_slot = build_groups(grouped, kk)
     qg = qn.bfloat16()[qidx]  # [G, QT, D]
     qsum_g = qsum[qidx]  # [G, QT]
     if folded is None:

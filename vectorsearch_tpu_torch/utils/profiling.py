@@ -14,19 +14,18 @@ import time
 
 import torch
 
-from ..device import default_device
 from ..logger import sugar
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Profile the block with torch.profiler (host ops, and the card's
-    kernels when the default device is a CUDA card) and write a Chrome
-    trace into log_dir."""
+    kernels when there is a CUDA card) and write a Chrome trace into
+    log_dir."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if default_device().type == "cuda":
+    if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
