@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Phases (any failure exits non-zero before the last line is printed):
+Phases (any failure, a failed check or a phase that raised, prints a
+FAIL: line and exits 1 before the last line is printed):
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: nvcc builds every kernel of the path from vectorsearch_tpu_torch/csrc,
      one nvcc per source, all started together; beside it, ptxas's report
@@ -79,10 +80,21 @@ Phases (any failure exits non-zero before the last line is printed):
      document never returns); and child processes, one a card (one on a
      machine with one card), that join an `nccl` group through
      maybe_initialize and search a ShardedIVF over global_mesh();
-  7. engine: upload, rebuild (Engine.refresh_centroids), search,
+  7. graft: the port's graft entry points (vectorsearch_tpu_torch/graft_entry.py):
+     entry()'s forward (probe + grouped scan, nprobe=2, k=10) on the card at
+     its example shape against the same function on CPU copies of its
+     tensors (the scan kernel's plain version), and at full width on phase
+     4's index (B=512) against index/ivf._ivf_scan, the plain gather
+     formulation, on the card: scores within the scan's tolerance, slot sets
+     equal but at ties; then dryrun_multichip over default_mesh() (every
+     card) and over 4 shards of the card built as a Mesh (a sharded Lloyd's
+     pass, ShardedFlat, ShardedIVF with and without refine held against
+     IVFIndex, an Engine whose rebuild installs the replica and serves 6
+     concurrent searches through the batcher);
+  8. engine: upload, rebuild (Engine.refresh_centroids), search,
      search_many, delete and a snapshot reboot through Engine, with the
      deterministic noop embedder;
-  8. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
+  9. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
      this process, on a free localhost port over a temporary SQLite store
      and snapshot dir, with a deterministic embedder at D=768 (a text's
      first number names a document; its vector is bench.py's recipe).
@@ -95,17 +107,21 @@ Phases (any failure exits non-zero before the last line is printed):
      searches at centroids 1 and 8 from one client and from 16 at once
      (p50/p99 ms, requests/s); batched texts searches of 256 (queries/s);
      100 deletes that never come back; a chat stream; /api/stats naming
-     the card. Then `python -m vectorsearch_tpu_torch` with the noop
-     embedder boots, answers an upload and a search, and exits 0 on
-     SIGTERM;
-  9. the 10M build: bench_build.py's configuration, 10M x 768 clustered
+     the card; then through the port's client SDK (client.Client): an
+     upload of 1,000 new documents, searches at centroids 1 and 8 whose
+     hits must equal the raw HTTP answer to the same request, a zstd round
+     trip, a streamed chat, and an empty upload that must raise ClientError
+     with the server's status. Then `python -m vectorsearch_tpu_torch`
+     with the noop embedder boots, answers an upload and a search, and
+     exits 0 on SIGTERM;
+  10. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
      fixed seed, moved to host numpy once) -> build_centroids with k=4096
      and bench_build.py's arguments: build seconds, iterations, final
      churn, cluster sizes and peak device memory; then, outside the phase's
      launch counts, the same build under torch.profiler, its device time
      summed by kernel;
-  10. the kernels line, the card line, and the contract line. Each kernel's
+  11. the kernels line, the card line, and the contract line. Each kernel's
      entry has its bound (the larger of its bytes over 3.35 TB/s and its
      operations over the peak of their type, from this run's shapes), its
      share of that bound, and the time of one PyTorch call for the
@@ -113,10 +129,10 @@ Phases (any failure exits non-zero before the last line is printed):
      index_add_ of the f32 dequantized rows).
      The grouped scan's row is its time on the built index's store.
 
-Every kernel launch count is set to 0 just before each of phases 4-9 and
-read just after: phases 4, 6, 7 and 8 must launch the grouped scan and
+Every kernel launch count is set to 0 just before each of phases 4-10 and
+read just after: phases 4, 6, 7, 8 and 9 must launch the grouped scan and
 both k-means kernels (phase 6 the scan at least once a shard of every
-search on the card's 4 shards), phase 5 both flat band kernels, phase 9
+search on the card's 4 shards), phase 5 both flat band kernels, phase 10
 both k-means kernels. The script imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
 through vectorsearch_tpu_torch.host), and checks at the end that neither
@@ -136,6 +152,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -210,6 +227,9 @@ SERVER_CLIENTS, SERVER_PER_CLIENT = 16, 100
 SERVER_NPROBES = (1, 8)
 SERVER_BATCH_Q, SERVER_BATCH_ROUNDS = 256, 5
 SERVER_DELETE = 100
+# the client SDK's share of the server phase: documents it uploads, and
+# searches it makes from the sampled and from its own documents
+SERVER_CLIENT_UPLOAD, SERVER_CLIENT_SEARCHES = 1_000, 50
 CHAT_REPLY = "chat reply"
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # the least time a kernel could take is the larger of its bytes over the
@@ -236,6 +256,7 @@ PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "flat": ("flat_bands_s8", "flat_bands_bf16"),
     "sharded": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "graft": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
@@ -1302,23 +1323,29 @@ def phase_flat(torch, dev, packed, queries, truth) -> dict:
     return out
 
 
-def sharded_ivf_checks(got_s, got_i, want_s, want_i, truth_ids) -> dict:
-    """A sharded search's (scores, ids) against the single-device index's
-    on the same centroids and the truth: recall@10, rows with an id twice,
-    rows whose top-10 set differs other than at a tie (each id in one set
-    only scores within TIE_SHARDED of the row's 10th score), the largest
-    score difference, and whether every score is a finite cosine."""
-    rows = range(got_i.shape[0])
+def sets_differ(got_s, got_i, want_s, want_i, tie) -> int:
+    """Rows whose top-k set differs other than at a tie: each id in one set
+    only scores within `tie` of the row's k-th score in `want_s`."""
     odd = 0
-    for r in rows:
+    for r in range(got_i.shape[0]):
         cut = want_s[r, -1]
         only = [(got_s[r], got_i[r], x) for x in set(got_i[r]) - set(want_i[r])]
         only += [(want_s[r], want_i[r], x) for x in set(want_i[r]) - set(got_i[r])]
-        odd += any(abs(float(s[i == x][0]) - cut) > TIE_SHARDED for s, i, x in only)
+        odd += any(abs(float(s[i == x][0]) - cut) > tie for s, i, x in only)
+    return odd
+
+
+def sharded_ivf_checks(got_s, got_i, want_s, want_i, truth_ids) -> dict:
+    """A sharded search's (scores, ids) against the single-device index's
+    on the same centroids and the truth: recall@10, rows with an id twice,
+    rows whose top-10 set differs other than at a tie (within TIE_SHARDED),
+    the largest score difference, and whether every score is a finite
+    cosine."""
+    rows = range(got_i.shape[0])
     return {
         "recall": float(np.mean([len(set(got_i[r]) & set(truth_ids[r])) / TOPK for r in rows])),
         "repeats": int(sum(len(set(got_i[r])) < TOPK for r in rows)),
-        "sets_differ": odd,
+        "sets_differ": sets_differ(got_s, got_i, want_s, want_i, TIE_SHARDED),
         "max_score_diff": float(np.abs(got_s - want_s).max()),
         "finite": bool(np.isfinite(got_s).all() and (np.abs(got_s) <= 1 + 1e-5).all()),
     }
@@ -1629,6 +1656,79 @@ def phase_sharded(torch, dev, smi, packed, ids, centroids, assignments, queries,
         fail(f"process group of {world}: {ent}")
     log(f"sharded, a process group of {world} in child processes "
         f"({ent['s']:.1f} s): {ent['ranks']}")
+    return out
+
+
+def forward_checks(s, g, want_s, want_g) -> dict:
+    """The entry forward's (scores, slots) against another formulation's on
+    the same tensors: the largest score difference (-inf taken as -9),
+    rows whose -inf pattern differs, and rows whose slot set differs other
+    than at a tie within KERNEL_ATOL."""
+    s, want_s = np.nan_to_num(s, neginf=-9.0), np.nan_to_num(want_s, neginf=-9.0)
+    return {"max_abs_err": float(np.abs(s - want_s).max()),
+            "sets_differ": sets_differ(s, g, want_s, want_g, KERNEL_ATOL),
+            "finite_differ": int(((s == -9.0) != (want_s == -9.0)).any(axis=1).sum())}
+
+
+def phase_graft(torch, dev, smi, single, queries) -> dict:
+    """The port's graft entry points (vectorsearch_tpu_torch/graft_entry.py):
+    entry()'s forward on the card at its example shape, held against the
+    same function on CPU copies of its tensors (the scan kernel's plain
+    version); the same forward at full width on phase 4's index `single`
+    (B = the bench queries, nprobe=2, k=10), held against index/ivf's
+    _ivf_scan, the plain gather formulation, on the card; then
+    dryrun_multichip over every card (default_mesh) and over SHARDED_SHARDS
+    shards of this card built as a Mesh."""
+    from vectorsearch_tpu_torch import graft_entry
+    from vectorsearch_tpu_torch.index import ivf as ivf_mod
+    from vectorsearch_tpu_torch.parallel import Mesh
+
+    out, failures = {"failures": []}, []
+    fn, args = graft_entry.entry()
+    if args[0].device.type != dev.type:
+        failures.append(f"entry() built its example on {args[0].device}, not {dev.type}")
+    s, g = fn(*args)
+    torch.cuda.synchronize()
+    ps, pg = fn(*[a.cpu() for a in args])
+    c = out["example"] = forward_checks(*(t.cpu().numpy() for t in (s, g, ps, pg)))
+    c["shape"] = [list(t.shape) for t in (s, g)]
+    log(f"graft entry(): forward {c['shape']} on {args[0].device} against its plain "
+        f"version on the CPU: max |diff| {c['max_abs_err']:.3g}, {c['sets_differ']} rows "
+        f"whose slot set differs past a tie")
+
+    b = queries.shape[0]
+    full = (torch.from_numpy(queries).to(dev), single.centroids_n, *single.buckets,
+            single.counts_dev, single.bucket_mask)
+    t0 = time.perf_counter()
+    s, g = fn(*full)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    parts = [ivf_mod._ivf_scan(full[0][i : i + 128], full[1], single.buckets, *full[6:],
+                               nprobe=graft_entry.NPROBE, k=graft_entry.K)
+             for i in range(0, b, 128)]
+    want_s, want_g = (torch.cat([p[j] for p in parts]).cpu().numpy() for j in (0, 1))
+    del parts
+    torch.cuda.empty_cache()
+    c = out["full"] = forward_checks(s.cpu().numpy(), g.cpu().numpy(), want_s, want_g)
+    c.update(B=b, K=single.k_clusters, cap=single.cap, first_call_s=forward_s)
+    log(f"graft entry()'s forward at full width (B={b}, K={single.k_clusters}, cap="
+        f"{single.cap}, D={single.dim}, nprobe={graft_entry.NPROBE}, k={graft_entry.K}; "
+        f"first call {forward_s:.3f} s, host clock) against _ivf_scan (the plain gather "
+        f"formulation) on {dev}: max |diff| {c['max_abs_err']:.3g}, {c['sets_differ']} "
+        f"rows whose slot set differs past a tie ({smi})")
+    for label, r in (("example", out["example"]), ("full width", c)):
+        if r["max_abs_err"] > KERNEL_ATOL or r["sets_differ"] or r["finite_differ"]:
+            failures.append(f"entry() forward, {label}: {r}")
+
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    out["dryrun"] = {}
+    for label, kw in ((f"default_mesh({n_cards})", {"n_devices": n_cards}),
+                      (f"{SHARDED_SHARDS} shards of {dev}",
+                       {"mesh": Mesh((dev,) * SHARDED_SHARDS)})):
+        t0 = time.perf_counter()
+        out["dryrun"][label] = graft_entry.dryrun_multichip(**kw)
+        log(f"graft dryrun_multichip, {label}: {time.perf_counter() - t0:.1f} s")
+    out["failures"] = failures
     return out
 
 
@@ -2011,11 +2111,63 @@ def phase_server(torch, dev, smi, n_docs=SERVER_DOCS, n_sample=SERVER_SAMPLE,
                 log(f"server: {SERVER_DELETE} deleted, {out['deleted_returned']} came back; "
                     f"chat streamed; /api/stats devices {[d['name'] for d in stats['devices']]}")
 
+                # 8. the same server through the port's client SDK
+                out["client"] = client_checks(port, c, search, ids, sample, n_docs, failures)
+
             # ---- the entry as users start it
             out["entry"] = entry_check(tmp, failures)
     finally:
         entry.Engine = RecordedEngine.__mro__[1]
     out["failures"] = failures
+    return out
+
+
+def client_checks(port, raw, search, ids, sample, n_docs, failures) -> dict:
+    """vectorsearch_tpu_torch.client.Client against the serving port: an
+    upload of SERVER_CLIENT_UPLOAD new documents (each then found first
+    by its own text), searches at centroids 1 and 8 whose hits must equal
+    the raw-HTTP client's answer to the same request, a zstd round trip
+    (request and response compressed), a streamed chat, and an upload
+    with no documents (ClientError with the status the raw request gets)."""
+    from vectorsearch_tpu_torch.client import Client, ClientError
+
+    url = f"http://127.0.0.1:{port}"
+    cl, zc = Client(url), Client(url, use_zstd=True)
+    out = {}
+    t0 = time.perf_counter()
+    nums = range(n_docs + 1, n_docs + 1 + SERVER_CLIENT_UPLOAD)
+    new_ids = cl.upload("o", "c", [{"name": f"d{n}", "document": {"text": f"document {n}"}}
+                                   for n in nums])
+    out["upload_s"] = time.perf_counter() - t0
+    if len(set(new_ids)) != len(nums) or set(new_ids) & set(ids.values()):
+        failures.append(f"client upload: {len(set(new_ids))} new ids for {len(nums)} documents")
+    ids = {**ids, **dict(zip(nums, new_ids))}
+    queries = [int(n) for n in sample[-SERVER_CLIENT_SEARCHES:]] + list(nums)[:SERVER_CLIENT_SEARCHES]
+    mismatched, not_first = 0, 0
+    for centroids in SERVER_NPROBES:
+        for n in queries:
+            got = cl.search("o", "c", f"document {n}", count=10, centroids=centroids)
+            mismatched += got != search(raw, n, centroids)
+            not_first += centroids != 1 and got[0]["document_id"] != ids[n]
+    zstd_hits = zc.search("o", "c", f"document {queries[0]}", count=10, centroids=8)
+    zstd_same = zstd_hits == search(raw, queries[0], 8)
+    reply = "".join(cl.chat("summarize", document_ids=[new_ids[0]]))
+    status = raw.call("POST", "/api/upload", {"owner": "o", "category": "c", "documents": []})[0]
+    try:
+        cl.upload("o", "c", [])
+        error = None
+    except ClientError as e:
+        error = e.status
+    out.update(searches=len(queries) * len(SERVER_NPROBES), mismatched=mismatched,
+               not_first=not_first, zstd_same=zstd_same, chat=reply == CHAT_REPLY,
+               error_status=error, raw_status=status)
+    if mismatched or not_first or not zstd_same or reply != CHAT_REPLY or error != status:
+        failures.append(f"client: {out}")
+    log(f"server through the client SDK: {len(nums)} documents uploaded in "
+        f"{out['upload_s']:.2f} s; {out['searches']} searches at centroids "
+        f"{SERVER_NPROBES}, {mismatched} answered other than the raw request, {not_first} "
+        f"not first at centroids 8; zstd round trip equal {zstd_same}; chat "
+        f"{reply == CHAT_REPLY}; an empty upload raised ClientError {error} (raw {status})")
     return out
 
 
@@ -2190,11 +2342,16 @@ def main() -> int:
         "by_nprobe_index_store": scan, "ptxas": ptxas["grouped_scores"],
         "ptxas_warnings": ptxas["grouped_scores_warnings"]})
     flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
-    shd = run("sharded", lambda: phase_sharded(torch, dev, smi, *idx.pop("sharded_inputs")))
+    sharded_inputs = idx.pop("sharded_inputs")
+    shd = run("sharded", lambda: phase_sharded(torch, dev, smi, *sharded_inputs))
     # the scan held against plain on one shard's store of the sharded path
     entries[0]["sharded_shard_checks"] = shd["scan_checks"]
     entries[0]["max_abs_err"] = max([entries[0]["max_abs_err"],
                                      *(c["max_abs_err"] for c in shd["scan_checks"].values())])
+    # the graft entry points, the full-width forward on phase 4's index
+    grf = run("graft", lambda: phase_graft(torch, dev, smi, sharded_inputs[-1],
+                                           sharded_inputs[4]))
+    del sharded_inputs
     torch.cuda.empty_cache()
     eng = run("engine", lambda: phase_engine(torch, dev))
     srv = run("server", lambda: phase_server(torch, dev, smi))
@@ -2213,6 +2370,7 @@ def main() -> int:
         if idle:
             failures.append(f"not launched in the {phase} phase: {idle}")
     failures += [f"sharded phase: {f}" for f in shd["failures"]]
+    failures += [f"graft phase: {f}" for f in grf["failures"]]
     # the scan once a shard of every search on the card's shards
     if launches["sharded"]["grouped_scores"] < SHARDED_SHARDS * shd["virtual_searches"]:
         failures.append(f"sharded phase: {launches['sharded']['grouped_scores']} scan "
@@ -2260,4 +2418,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as exc:  # a phase that raised fails the run like a failed check
+        traceback.print_exc()
+        print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
+        sys.exit(1)

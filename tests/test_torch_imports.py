@@ -37,10 +37,12 @@ print(len(names))
         cwd=ROOT, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # the 28 modules of the search, build, engine and server slices, and
-    # the port's own copies of the host modules: config, constants,
-    # logger, utils.errors, quant/ (3), native, store/ (6), embed/ (7)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 49
+    # the 28 modules of the search, build, engine and server slices,
+    # parallel/ (4), the port's own copies of the host modules (config,
+    # constants, logger, utils.errors, quant/ (3), native, store/ (6),
+    # embed/ (7)), the graft entry points (graft_entry) and the client
+    # SDK (client)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 55
 
 
 def test_package_pins_full_f32_products(monkeypatch):

@@ -256,7 +256,8 @@ def run(cfg: config_mod.Config, ai=None, stop: threading.Event | None = None) ->
     try:
         preftest(device)
         engine = Engine(
-            store, ai, snapshot_dir=cfg.database.snapshots, mesh=mesh, device=device
+            store, ai, snapshot_dir=cfg.database.snapshots, mesh=mesh, device=device,
+            warm_nprobes=cfg.server.warm_nprobes,
         )
 
         # one-shot background work at startup (reference: main.go:92): the

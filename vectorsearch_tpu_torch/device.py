@@ -67,11 +67,15 @@ def to_host(t) -> np.ndarray:
 
 
 def to_device(a, device, dtype=None) -> torch.Tensor:
-    """Upload a numpy array (or tensor) to `device`, optionally cast."""
+    """Upload a numpy array (or tensor) to `device`, optionally cast. An
+    array always becomes a tensor of its own memory: on the CPU `.to`
+    would hand back a view of the caller's array, whose storage can be
+    neither resized (IVFIndex.release_device) nor freed by the index."""
     if not isinstance(a, torch.Tensor):
         # read-only arrays (e.g. views of JAX buffers) are copied first:
         # torch tensors must be writable
         a = torch.from_numpy(np.require(a, requirements="W"))
+        return a.to(device=device, dtype=dtype, copy=True)
     return a.to(device=device, dtype=dtype)
 
 

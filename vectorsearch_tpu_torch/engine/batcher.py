@@ -30,6 +30,7 @@ reference, which also keeps id()-keyed maps collision-free.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
@@ -104,6 +105,11 @@ class QueryBatcher:
 
         if leader:
             self._device.acquire()
+            # yield the interpreter once before the batch closes, so that
+            # callers already on their way join it: a dispatch that keeps
+            # the interpreter (torch ops on small CPU tensors release it
+            # only for microseconds) would otherwise run each caller alone
+            time.sleep(0)
             try:
                 with self._lock:
                     batch.closed = True

@@ -195,6 +195,7 @@ class Engine:
         cache: EngineCache | None = None,
         mesh=None,
         device=None,
+        warm_nprobes: tuple[int, ...] | None = None,
     ):
         """`mesh`: an optional parallel.Mesh. When set, index rebuilds run
         their k-means on it and also build a cluster-sharded read replica
@@ -202,11 +203,16 @@ class Engine:
 
         `device`: where the single-device indexes live; None takes
         device.resolve(None) (VSTPU_DEVICE, else the CUDA card), which
-        raises before the store is touched when there is neither."""
+        raises before the store is touched when there is neither.
+
+        `warm_nprobes`: the deployment's serving probe widths from the
+        config file ("server.warm_nprobes"), which warmup() searches at.
+        None = auto per category (see warmup)."""
         import uuid
 
         self.device = resolve(device)
         self.mesh = mesh
+        self.warm_nprobes = tuple(warm_nprobes) if warm_nprobes else None
         self.store = store
         self.ai = ai
         self.snapshot_dir = snapshot_dir
@@ -1412,11 +1418,29 @@ class Engine:
 
     # ----------------------------------------------------------------- warmup
 
-    def warmup(self) -> None:
+    def warmup(self, nprobes: tuple[int, ...] | None = None) -> None:
         """Build the CUDA kernels (on a card) and run one default-shaped
-        search per category, so the first real request pays neither the
-        nvcc build nor first-use allocation. Safe no-op on empty state.
-        There are no shapes to precompile: PyTorch runs eagerly."""
+        search per category at each serving probe width, so the first real
+        request pays neither the nvcc build nor first-use allocation. Safe
+        no-op on empty state. There are no shapes to precompile: PyTorch
+        runs eagerly, so no batch class is warmed.
+
+        `nprobes`: the probe widths. Resolution order, as in the JAX
+        engine: explicit arg > VSTPU_WARM_NPROBES env override > config
+        "server.warm_nprobes" (Engine(warm_nprobes=...)) > auto per
+        category — (1,) for small categories, (1, 8) above ~1M live rows
+        where nprobe=8 is the documented recall-floor serving config."""
+        if nprobes is None:
+            env = os.environ.get("VSTPU_WARM_NPROBES", "")
+            if env.strip():
+                # a malformed env value must degrade like every other
+                # warmup failure, not raise out of boot
+                try:
+                    nprobes = tuple(int(x) for x in env.split(",") if x.strip()) or None
+                except ValueError:
+                    sugar().warning("ignoring malformed VSTPU_WARM_NPROBES=%r", env)
+            if nprobes is None:
+                nprobes = self.warm_nprobes  # config; may still be None
         if self.device.type == "cuda":
             from ..kernels import _build
 
@@ -1425,17 +1449,24 @@ class Engine:
             states = list(self._states.values())
         k = _k_class(10)  # the default request's candidate class
         for st in states:
+            ivf = st.ivf
+            if ivf is None or ivf.n_live == 0:
+                continue
+            cat_nprobes = nprobes or ((1, 8) if ivf.n_live > 1_000_000 else (1,))
             try:
-                # gate like every search dispatch, and re-read st.ivf
-                # inside it: a frozen-store re-pack frees the old buffers
-                with st.search_pass():
-                    cur = st.ivf
-                    if cur is None or cur.n_live == 0:
-                        continue
-                    dummy = np.zeros((1, cur.dim), np.float32)
-                    dummy[0, 0] = 1.0
-                    (st.sharded or cur).search(dummy, k=k, nprobe=1, refine=k)
-                sugar().info("warmed category %d", st.category_id)
+                for nprobe in cat_nprobes:
+                    # gate like every search dispatch, and re-read st.ivf
+                    # inside it: a frozen-store re-pack frees the old buffers
+                    with st.search_pass():
+                        cur = st.ivf
+                        if cur is None or cur.n_live == 0:
+                            continue
+                        dummy = np.zeros((1, cur.dim), np.float32)
+                        dummy[0, 0] = 1.0
+                        (st.sharded or cur).search(dummy, k=k, nprobe=nprobe, refine=k)
+                sugar().info(
+                    "warmed category %d (nprobes %s)", st.category_id, list(cat_nprobes)
+                )
             except Exception as e:
                 sugar().warning("warmup failed for %d: %s", st.category_id, e)
 
