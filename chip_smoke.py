@@ -121,32 +121,63 @@ FAIL: line and exits 1 before the last line is printed):
      churn, cluster sizes and peak device memory; then, outside the phase's
      launch counts, the same build under torch.profiler, its device time
      summed by kernel;
-  11. the kernels line, the card line, and the contract line. Each kernel's
+  11. serve10m (vectorsearch_tpu_torch/tools/bench_10m_serving.py on phase
+     10's rows and build; no second build): 512 queries (dequantized rows
+     plus noise, numpy seed 123) and their exact-f32 truth over the
+     ORIGINAL rows, made again slab by slab on the card; IVFIndex.build
+     under the engine's device budget (85% of the card: the bucket store is
+     not frozen), IVFIndex.search at nprobe 1, 8 and 64 (k=10, refine=32,
+     B=512; recall@10 at the 1M cell's floors) and nprobe 1 at B 2048,
+     4096, 8192; flat_search (s8, bf16) and FlatIndex.search(refine=32) on
+     the same rows. Outside the phase's launch counts: the scan kernel on
+     the 10M store at nprobe 8 and 64 against its plain version (the
+     search's own groups; blockexact's shapes), and both band kernels at
+     N=10M against theirs on 64 and on 512 queries, the flat search's
+     batch (s8 bit-equal, bf16 within 1e-4, the same -inf pattern), each
+     timed at B=512 with its bound and library yardstick;
+  12. engine10m (vectorsearch_tpu_torch/tools/engine_10m_check.py on the
+     first ENGINE10M_N = 2M of the same rows: cut from 10M, where the
+     phase alone takes longer than the whole script may, to the largest
+     size measured to keep the script within half its time limit (see
+     ENGINE10M_N); `python -m
+     vectorsearch_tpu_torch.tools.engine_10m_check` runs it at 10M. In a
+     temporary directory removed afterwards; too little free disk is a
+     failure naming the bytes needed): the rows written in bulk into a
+     fresh SQLite store with the build's assignments; a cold boot from
+     SQL (the engine's split: sql,
+     pack, index, snapshot) and a warm boot from its snapshot, whose top-10
+     sets at nprobe 8 on the 512 queries must agree but at ties; then the
+     port's entry (__main__.run) in this process on that store: seconds to
+     listen, the startup rebuild (both k-means kernels) with one client
+     searching meanwhile, HTTP recall@10 at nprobe 8 (>= 0.96), sequential
+     and 64-thread searches, batched texts with and without documents, 20
+     uploads of 10 that must find themselves first, 20 deletes that must
+     never return, RSS and device bytes, and a clean stop;
+  13. the kernels line, the card line, and the contract line. Each kernel's
      entry has its bound (the larger of its bytes over 3.35 TB/s and its
      operations over the peak of their type, from this run's shapes), its
      share of that bound, and the time of one PyTorch call for the
      product alone (no sidecars, argmax or maxima; for accumulate,
      index_add_ of the f32 dequantized rows).
-     The grouped scan's row is its time on the built index's store.
+     The grouped scan's row is its time on the built index's store; the
+     rows at the 10M shapes of phase 11 stand beside the 1M ones.
 
-Every kernel launch count is set to 0 just before each of phases 4-10 and
-read just after: phases 4, 6, 7, 8 and 9 must launch the grouped scan and
-both k-means kernels (phase 6 the scan at least once a shard of every
+Every kernel launch count is set to 0 just before each of phases 4-12 and
+read just after: phases 4, 6, 7, 8, 9 and 12 must launch the grouped scan
+and both k-means kernels (phase 6 the scan at least once a shard of every
 search on the card's 4 shards), phase 5 both flat band kernels, phase 10
-both k-means kernels. The script imports only the port,
+both k-means kernels, phase 11 the scan and both band kernels. The script
+imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
 through vectorsearch_tpu_torch.host), and checks at the end that neither
 jax nor anything of the JAX package vectorsearch_tpu was imported.
 """
 from __future__ import annotations
 
-import contextlib
-import http.client
 import json
 import os
 import re
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -251,6 +282,20 @@ SHARDED_CHECK_NPROBES = (8, 64)
 SHARDED_LLOYD_ITERS = 5
 LLOYD_MOVED_SHARE, LLOYD_CENTROID_ATOL = 1e-4, 1e-4
 TIE_SHARDED = 1e-6
+# the 10M serving phase: the probe widths at which the scan kernel is held
+# against its plain version on the 10M store, and the batches at which the
+# band kernels are held against theirs at N=10M: 64 queries (one block of
+# 64 over every SM's tile lane) and the flat search's own 512 (blocks of
+# 128 for s8, 4 query blocks; band offsets past 2^31 bytes)
+SERVE10M_CHECK_NPROBES = (8, 64)
+SERVE10M_BAND_BS = (64, N_QUERIES)
+# the 10M engine phase's documents: the first ENGINE10M_N of phase 10's rows,
+# a multiple of the 500,000-row slab. Cut from 10M to the largest size
+# measured to keep the whole script within 600 s, half its time limit, and
+# never below 2M (engine_scale_check's size). On H100 80GB HBM3 hosts at
+# 700 W the phase took 1340 s alone at 10M, 445.7 s at 3M (the script
+# 799 s) and 212-250 s at 2M (the script 472-529 s)
+ENGINE10M_N = 2_000_000
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
@@ -260,6 +305,8 @@ PHASE_KERNELS = {
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
+    "serve10m": ("grouped_scores", "flat_bands_s8", "flat_bands_bf16"),
+    "engine10m": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
 }
 
 
@@ -285,32 +332,6 @@ def make_queries(data, n_queries, seed=123):
     q_idx = rng.choice(data.shape[0], size=n_queries, replace=False)
     noise = rng.normal(size=(n_queries, data.shape[1])).astype(np.float32) * 0.1
     return (data[q_idx] + noise).astype(np.float32)
-
-
-def packed_on_card(torch, dev, n, dim, k, seed, step=500_000):
-    """Clustered rows (bench.py's recipe: 2 * center + unit noise) made on
-    the card from `seed` and packed the codec's way (layout.pack_float:
-    range folded from 0, truncation to u8, codes q - 128, f32 sidecars).
-    Yields (start, PackedVectors of tensors) per `step` rows."""
-    from vectorsearch_tpu_torch.host import layout
-
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    centers = torch.randn((k, dim), generator=gen, device=dev)
-    for start in range(0, n, step):
-        m = min(step, n - start)
-        v = centers[torch.randint(0, k, (m,), generator=gen, device=dev)] * 2.0
-        v += torch.randn((m, dim), generator=gen, device=dev)
-        vmin = v.amin(dim=-1).clamp(max=0)
-        vmax = v.amax(dim=-1).clamp(min=0)
-        span = vmax - vmin
-        safe = torch.where(span == 0, 1.0, span)
-        q = torch.trunc((v - vmin[:, None]) / safe[:, None] * 255.0).clamp(0, 255)
-        codes = (q - 128).to(torch.int8)
-        scale = span / 255.0
-        offset = vmin + 128.0 * scale
-        norm = (offset[:, None] + scale[:, None] * codes.float()).norm(dim=-1)
-        inv_norm = torch.where(norm == 0, 0.0, 1.0 / torch.where(norm == 0, 1.0, norm))
-        yield start, layout.PackedVectors(codes, scale, offset, inv_norm)
 
 
 def bound(bytes_moved, ops, peak_ops) -> dict:
@@ -458,16 +479,31 @@ def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
         g = int(gcl.numel())
         # the library yardstick, product only (no sidecars, no maxima, every
         # column of the bucket): torch.bmm of the group rows by their
-        # buckets' codes, gathered and widened to bf16 outside the timing
-        library_ms, library_note = None, None
+        # buckets' codes, gathered and widened to bf16 outside the timing,
+        # one bmm a 2 GB chunk of gathered codes, all timed together. Where
+        # the whole gather does not fit beside the store (the 10M store),
+        # each chunk is gathered and timed alone and the times summed
+        library_ms, library_note, library_timing = None, None, "all chunks in one timing"
+        step = max(1, (2 << 30) // (cap * d * 2))
         try:
-            step = max(1, (2 << 30) // (cap * d * 2))
-            ops = [(qg[i : i + step], codes[gcl[i : i + step].long()].bfloat16().transpose(1, 2))
-                   for i in range(0, g, step)]
-            library_ms = median_ms(torch, lambda: [torch.bmm(q, c) for q, c in ops], 5)
-            del ops
+            try:
+                ops = [(qg[i : i + step],
+                        codes[gcl[i : i + step].long()].bfloat16().transpose(1, 2))
+                       for i in range(0, g, step)]
+                library_ms = median_ms(torch, lambda: [torch.bmm(q, c) for q, c in ops], 5)
+            except torch.cuda.OutOfMemoryError:
+                ops = None
+                torch.cuda.empty_cache()
+                library_timing = "each chunk gathered and timed alone, the times summed"
+                library_ms = 0.0
+                for i in range(0, g, step):
+                    q_i = qg[i : i + step]
+                    c_i = codes[gcl[i : i + step].long()].bfloat16().transpose(1, 2)
+                    library_ms += median_ms(torch, lambda: torch.bmm(q_i, c_i), 5)
+                    del c_i
+            ops = None
         except RuntimeError as e:  # out of memory, or a shape bmm refuses
-            library_note = str(e)[:200]
+            ops, library_ms, library_note = None, None, str(e)[:200]
         torch.cuda.empty_cache()
         # this run's data. The codes and sidecars of the probed clusters read
         # once, the group queries, gcl and counts read, the scores and
@@ -486,7 +522,8 @@ def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
         r = by_nprobe[nprobe] = {
             "G": g, "QT": qt, "max_abs_err": err, "ms": ms,
             "single_launch_ms": single_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bnd, "share": bnd["bound_ms"] / ms,
+            "library_ms": library_ms, "library_timing": library_timing,
+            **bnd, "share": bnd["bound_ms"] / ms,
             "bound_all_slots_ms": full["bound_ms"],
             "share_all_slots": full["bound_ms"] / ms,
             "live_code_GB_per_s": int(live_cols[hit].sum()) * d / ms / 1e6,
@@ -499,7 +536,7 @@ def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
             f"with the wrapper's host side {single_ms:.3f} ms) vs plain {plain_ms:.3f} ms, "
             f"library {lib} "
             f"(torch.bmm of the bf16 group rows by their buckets' codes widened to bf16: "
-            f"product only); bound on the live columns {bnd['bound_ms']:.3f} ms "
+            f"product only; {library_timing}); bound on the live columns {bnd['bound_ms']:.3f} ms "
             f"({bnd['bound_by']}), share {r['share']:.3f}; bound on every slot "
             f"{full['bound_ms']:.3f} ms, share {r['share_all_slots']:.3f} "
             f"(medians of 20 / 20 / 5 / 5, {smi})")
@@ -770,12 +807,13 @@ def accumulate_timing(torch, km, rows, cid, kk, smi: str) -> dict:
 def phase_kmeans_kernels(torch, dev, smi: str) -> list:
     """assign and accumulate against their plain versions on clustered
     packed rows, with centroids drawn from the rows (sample_init's way)."""
+    from vectorsearch_tpu_torch.tools.scale_corpus import packed_on_card
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.kernels import kmeans as km
 
     worst_edge = accumulate_edge_cases(torch, dev)
     n_max = max(n for n, _, _ in KMEANS_SHAPES)
-    parts = [p for _, p in packed_on_card(torch, dev, n_max, DIM, K_GEN, seed=1)]
+    parts = [p for _, p in packed_on_card(dev, n_max, DIM, K_GEN, seed=1)]
     full = layout.PackedVectors(*[torch.cat(a) for a in zip(*parts)])
     del parts
     by_shape, worst_gap, worst_sum = {}, 0.0, 0.0
@@ -933,6 +971,47 @@ def assign_sweep(torch, dev, full, smi: str) -> dict:
     return out
 
 
+def band_row(torch, name, fn, ref, args, runs=20, plain_runs=5) -> dict:
+    """One band kernel's time on `args` (queries, their sidecars, then the
+    corpus's codes, a, bv, bias): 10 launches back to back and one launch
+    with its wrapper, the plain version's, rates, the bound and its share,
+    and the library yardstick, product only (torch._int_mm of the s8
+    queries by the codes^T, or the bf16 queries by the codes widened to
+    bf16), on operands made ready outside the timing."""
+    from vectorsearch_tpu_torch.kernels import flat as tf
+
+    q, codes = args[0], args[-4]
+    b, (n, d) = q.shape[0], codes.shape
+    r = {"ms": median_ms(torch, lambda: fn(*args), runs, launches=10),
+         "single_launch_ms": median_ms(torch, lambda: fn(*args), runs),
+         "plain_ms": median_ms(torch, lambda: ref(*args), plain_runs)}
+    r["TOP_per_s"] = 2 * b * n * d / r["ms"] / 1e9
+    # the codes and sidecars read once, the query rows and their sidecars
+    # read once, every band written once
+    moved = n * d + 12 * n + b * -(-n // tf.TILE_N) * tf.BAND_LANES * 4
+    r["GB_per_s"] = moved / r["ms"] / 1e6
+    q_bytes = b * (d + 8 if name == "flat_bands_s8" else 2 * d + 4)
+    r.update(bound(moved + q_bytes, 2 * b * n * d,
+                   PEAK_INT8_OPS if name == "flat_bands_s8" else PEAK_BF16_FLOPS))
+    r["bound_by_bytes_ms"] = (moved + q_bytes) / PEAK_BYTES_PER_S * 1e3
+    r["share"] = r["bound_ms"] / r["ms"]
+    try:
+        if name == "flat_bands_s8":
+            r["library_call"] = "torch._int_mm of the s8 queries by the codes^T, product only"
+            codes_t = codes.T
+            r["library_ms"] = median_ms(torch, lambda: torch._int_mm(q, codes_t), plain_runs)
+        else:
+            r["library_call"] = ("torch.matmul of the bf16 queries by the codes widened to "
+                                 "bf16, transposed, product only")
+            codes_t = codes.bfloat16().T
+            r["library_ms"] = median_ms(torch, lambda: q @ codes_t, plain_runs)
+    except RuntimeError as e:  # out of memory, or a shape the call refuses
+        r["library_ms"], r["library_note"] = None, str(e)[:200]
+    codes_t = None
+    torch.cuda.empty_cache()
+    return r
+
+
 def check_bands(torch, name, fn, ref, args, label):
     """One band kernel against its plain version on `args`: the same -inf
     pattern, s8 bit-equal, bf16 within KERNEL_ATOL, and a second launch
@@ -1004,13 +1083,14 @@ def phase_flat_kernels(torch, dev, smi: str, ptxas: dict) -> list:
     edge cases, then clustered packed rows made on the card, a hundredth of
     them dead, with B queries near corpus rows, at each of FLAT_SHAPES;
     timed at the first, under the launch rule and under FLAT_SCHEDULES."""
+    from vectorsearch_tpu_torch.tools.scale_corpus import packed_on_card
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.kernels import cosine
     from vectorsearch_tpu_torch.kernels import flat as tf
 
     worst = flat_edge_cases(torch, dev)
     n_max = max(FLAT_SHAPES)
-    parts = [p for _, p in packed_on_card(torch, dev, n_max, DIM, K_GEN, seed=2)]
+    parts = [p for _, p in packed_on_card(dev, n_max, DIM, K_GEN, seed=2)]
     full = layout.PackedVectors(*[torch.cat(a) for a in zip(*parts)])
     del parts
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1034,37 +1114,8 @@ def phase_flat_kernels(torch, dev, smi: str, ptxas: dict) -> list:
             err = check_bands(torch, name, fn, ref, args, f"N={n}")
             r = {"max_abs_err": err}
             if n == FLAT_SHAPES[0]:
-                r["ms"] = median_ms(torch, lambda: fn(*args), launches=10)
-                r["single_launch_ms"] = median_ms(torch, lambda: fn(*args))
-                r["plain_ms"] = median_ms(torch, lambda: ref(*args), 5)
-                r["TOP_per_s"] = 2 * N_QUERIES * n * DIM / r["ms"] / 1e9
-                # the codes and sidecars read once, the query rows and their
-                # sidecars read once, every band written once
+                r.update(band_row(torch, name, fn, ref, args))
                 tiles = -(-n // tf.TILE_N)
-                moved = n * DIM + 12 * n + N_QUERIES * tiles * tf.BAND_LANES * 4
-                r["GB_per_s"] = moved / r["ms"] / 1e6
-                q_bytes = N_QUERIES * (DIM + 8 if name == "flat_bands_s8" else 2 * DIM + 4)
-                r.update(bound(moved + q_bytes, 2 * N_QUERIES * n * DIM,
-                               PEAK_INT8_OPS if name == "flat_bands_s8" else PEAK_BF16_FLOPS))
-                r["bound_by_bytes_ms"] = (moved + q_bytes) / PEAK_BYTES_PER_S * 1e3
-                r["share"] = r["bound_ms"] / r["ms"]
-                # the library yardstick, product only (no sidecars, no band
-                # maxima): one call on operands made ready outside the timing
-                try:
-                    if name == "flat_bands_s8":
-                        r["library_call"] = ("torch._int_mm of the s8 queries by the "
-                                             "codes^T, product only")
-                        codes_t = corpus[0].T
-                        r["library_ms"] = median_ms(torch, lambda: torch._int_mm(qc, codes_t), 5)
-                    else:
-                        r["library_call"] = ("torch.matmul of the bf16 queries by the codes "
-                                             "widened to bf16, transposed, product only")
-                        codes_t = corpus[0].bfloat16().T
-                        r["library_ms"] = median_ms(torch, lambda: q_bf16 @ codes_t, 5)
-                except RuntimeError as e:  # out of memory, or a shape the call refuses
-                    r["library_ms"], r["library_note"] = None, str(e)[:200]
-                codes_t = None
-                torch.cuda.empty_cache()
                 # the same launch under other schedules (the kernel's own
                 # time, 10 launches back to back)
                 r["schedules"] = {}
@@ -1323,24 +1374,14 @@ def phase_flat(torch, dev, packed, queries, truth) -> dict:
     return out
 
 
-def sets_differ(got_s, got_i, want_s, want_i, tie) -> int:
-    """Rows whose top-k set differs other than at a tie: each id in one set
-    only scores within `tie` of the row's k-th score in `want_s`."""
-    odd = 0
-    for r in range(got_i.shape[0]):
-        cut = want_s[r, -1]
-        only = [(got_s[r], got_i[r], x) for x in set(got_i[r]) - set(want_i[r])]
-        only += [(want_s[r], want_i[r], x) for x in set(want_i[r]) - set(got_i[r])]
-        odd += any(abs(float(s[i == x][0]) - cut) > tie for s, i, x in only)
-    return odd
-
-
 def sharded_ivf_checks(got_s, got_i, want_s, want_i, truth_ids) -> dict:
     """A sharded search's (scores, ids) against the single-device index's
     on the same centroids and the truth: recall@10, rows with an id twice,
     rows whose top-10 set differs other than at a tie (within TIE_SHARDED),
     the largest score difference, and whether every score is a finite
     cosine."""
+    from vectorsearch_tpu_torch.tools.scale_corpus import sets_differ
+
     rows = range(got_i.shape[0])
     return {
         "recall": float(np.mean([len(set(got_i[r]) & set(truth_ids[r])) / TOPK for r in rows])),
@@ -1358,6 +1399,8 @@ def sharded_entry_check(world: int) -> dict:
     global_mesh() and search it in lockstep against IVFIndex on the same
     centroids on their own card: the collective path, at world size 1 on a
     machine with one card."""
+    from vectorsearch_tpu_torch.tools.http_driver import free_port
+
     code = r"""
 import json, sys
 import numpy as np
@@ -1664,6 +1707,8 @@ def forward_checks(s, g, want_s, want_g) -> dict:
     the same tensors: the largest score difference (-inf taken as -9),
     rows whose -inf pattern differs, and rows whose slot set differs other
     than at a tie within KERNEL_ATOL."""
+    from vectorsearch_tpu_torch.tools.scale_corpus import sets_differ
+
     s, want_s = np.nan_to_num(s, neginf=-9.0), np.nan_to_num(want_s, neginf=-9.0)
     return {"max_abs_err": float(np.abs(s - want_s).max()),
             "sets_differ": sets_differ(s, g, want_s, want_g, KERNEL_ATOL),
@@ -1829,89 +1874,13 @@ def clustered_ai(dim=DIM, k=K_GEN, seed=5):
     return ClusteredAI()
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def wait_listening(port, alive, timeout) -> None:
-    """Until the port accepts a connection; `alive()` false fails."""
-    deadline = time.monotonic() + timeout
-    while True:
-        try:
-            socket.create_connection(("127.0.0.1", port), timeout=1).close()
-            return
-        except OSError:
-            if not alive() or time.monotonic() > deadline:
-                raise AssertionError(f"nothing listens on port {port}") from None
-            time.sleep(0.1)
-
-
-class Client:
-    """One keep-alive HTTP/1.1 connection (the standard library's client)."""
-
-    def __init__(self, port):
-        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-
-    def call(self, method, path, obj=None):
-        """(status, headers, body): JSON bodies decoded, others as bytes."""
-        body = None if obj is None else json.dumps(obj).encode()
-        self.conn.request(method, path, body=body)
-        r = self.conn.getresponse()
-        raw = r.read()
-        ctype = r.getheader("Content-Type", "")
-        return r.status, dict(r.getheaders()), (
-            json.loads(raw) if ctype.startswith("application/json") else raw)
-
-    def post(self, path, obj):
-        status, _, out = self.call("POST", path, obj)
-        if status != 200:
-            raise AssertionError(f"POST {path}: HTTP {status} {out}")
-        return out
-
-
-def fan_out(port, n_clients, jobs):
-    """jobs (callables of a Client) over n_clients threads, each with its
-    own connection; returns (results in order, wall seconds)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    local = threading.local()
-
-    def one(job):
-        if not hasattr(local, "client"):
-            local.client = Client(port)
-        return job(local.client)
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(n_clients) as ex:
-        out = list(ex.map(one, jobs))
-    return out, time.perf_counter() - t0
-
-
-@contextlib.contextmanager
-def serving(entry, cfg, ai, port):
-    """The port's entry, run() in a thread of this process, until the
-    block ends; yields the seconds it took to listen."""
-    stop, rc = threading.Event(), []
-    thread = threading.Thread(target=lambda: rc.append(entry.run(cfg, ai, stop)))
-    t0 = time.perf_counter()
-    thread.start()
-    try:
-        wait_listening(port, thread.is_alive, 600)
-        yield time.perf_counter() - t0
-    finally:
-        stop.set()
-        thread.join(600)
-    if thread.is_alive() or rc != [0]:
-        raise AssertionError(f"the server did not stop cleanly (run() returned {rc})")
-
-
 def phase_server(torch, dev, smi, n_docs=SERVER_DOCS, n_sample=SERVER_SAMPLE,
                  per_client=SERVER_PER_CLIENT) -> dict:
     """The port's entry served over HTTP: boot 1 takes the uploads, boot 2
     rebuilds at startup and answers the searches, deletes, chat and stats;
     then `python -m vectorsearch_tpu_torch` is started as users start it."""
+    from vectorsearch_tpu_torch.tools.http_driver import (
+        Client, fan_out, free_port, serving)
     from vectorsearch_tpu_torch import __main__ as entry
     from vectorsearch_tpu_torch.host import config
 
@@ -2174,6 +2143,9 @@ def client_checks(port, raw, search, ids, sample, n_docs, failures) -> dict:
 def entry_check(tmp, failures) -> dict:
     """`python -m vectorsearch_tpu_torch config.json` with the noop
     embedder: boot, one upload and one search, exit 0 on SIGTERM."""
+    from vectorsearch_tpu_torch.tools.http_driver import (
+        Client, free_port, wait_listening)
+
     port = free_port()
     path = os.path.join(tmp, "entry.json")
     with open(path, "w") as f:
@@ -2225,17 +2197,13 @@ def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     """bench_build.py's build: clustered packed rows from k generating
     centers, made on the card, moved to host numpy once, then
     build_centroids with bench_build.py's arguments. The rows are returned
-    under "rows" for profile_build."""
+    under "rows", the build under "result", for profile_build and the 10M
+    serving and engine phases."""
     from vectorsearch_tpu_torch.build import build_centroids
-    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.tools.scale_corpus import packed_host
 
     t0 = time.perf_counter()
-    host = layout.PackedVectors(np.empty((n, DIM), np.int8), np.empty(n, np.float32),
-                                np.empty(n, np.float32), np.empty(n, np.float32))
-    for start, part in packed_on_card(torch, dev, n, DIM, k, seed=0):
-        for dst, src in zip(host, part):
-            dst[start : start + src.shape[0]] = src.cpu().numpy()
-    del part
+    host = packed_host(dev, n, DIM, k, seed=0)
     torch.cuda.empty_cache()
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2261,7 +2229,7 @@ def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
         f"{out['iterations']} iters, final churn {out['final_churn']}, max/mean cluster "
         f"{out['max_cluster']}/{out['mean_cluster']:.1f}, peak device memory "
         f"{out['peak_device_GiB']:.2f} GiB")
-    out["rows"] = host
+    out["rows"], out["result"] = host, result
     return out
 
 
@@ -2293,6 +2261,141 @@ def profile_build(torch, host, dev, k=BUILD_K, top=10) -> dict:
     log(f"build10m profile: device {total:.1f} ms in a {wall_s:.1f} s profiled build; by "
         f"kernel (ms): " + "; ".join(f"{name[:70]} {ms:.1f}" for name, ms in by_name.items()))
     return {"device_ms": total, "profiled_wall_s": wall_s, "kernel_ms": by_name}
+
+
+def band_timing(torch, dev, smi, rows) -> dict:
+    """Both band kernels on phase 10's rows on the card (N=10M, D=768),
+    a hundredth of them dead: against their plain versions at each batch
+    of SERVE10M_BAND_BS, queries near corpus rows (s8 bit-equal, bf16
+    within KERNEL_ATOL, the same -inf pattern), then at B=N_QUERIES, the
+    flat search's batch: the time of 10 launches back to back and of one, the
+    plain version's, the library yardstick's (the product alone) and the
+    bound."""
+    from vectorsearch_tpu_torch.device import upload_packed
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import flat as tf
+
+    full = upload_packed(rows, dev)
+    n = full.codes.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pick = torch.randint(0, n, (N_QUERIES,), generator=gen, device=dev)
+    q = full.offset[pick, None] + full.scale[pick, None] * full.codes[pick].float()
+    qn = cosine.l2_normalize(q + 0.1 * torch.randn(q.shape, generator=gen, device=dev))
+    a, bv = full.scale * full.inv_norm, full.offset * full.inv_norm
+    bias = torch.where(torch.rand((n,), generator=gen, device=dev) > 0.01, 0.0, float("-inf"))
+    corpus = (full.codes, a, bv, bias)
+    del q, pick
+    out = {}
+    for name, fn, ref in (("flat_bands_s8", tf.flat_bands_s8, tf.flat_bands_s8_ref),
+                          ("flat_bands_bf16", tf.flat_bands_bf16, tf.flat_bands_bf16_ref)):
+        def args(b):
+            if name == "flat_bands_s8":
+                qc, sq, qsum = cosine.quantize_queries(qn[:b])
+                return (qc, sq, qsum, *corpus)
+            return (qn[:b].bfloat16(), qn[:b].sum(-1), *corpus)
+
+        errs = {b: check_bands(torch, name, fn, ref, args(b), f"N={n} B={b}")
+                for b in SERVE10M_BAND_BS}
+        main_args = args(N_QUERIES)
+        r = {"max_abs_err": max(errs.values()),
+             "max_abs_err_by_B": {str(b): e for b, e in errs.items()},
+             "checked_at": f"B={' and '.join(map(str, SERVE10M_BAND_BS))}, N={n}, D={DIM}",
+             "ms_at": f"B={N_QUERIES}, N={n}, D={DIM}, 10 launches back to back",
+             **band_row(torch, name, fn, ref, main_args, runs=10, plain_runs=3)}
+        del main_args
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        log(f"{name} N={n} D={DIM}: max |kernel - plain| "
+            + ", ".join(f"{e:.3g} at B={b}" for b, e in errs.items()) + "; "
+            f"at B={N_QUERIES} kernel {r['ms']:.3f} ms (10 launches back to back; one launch "
+            f"{r['single_launch_ms']:.3f}), plain {r['plain_ms']:.3f} ms, library {lib} "
+            f"(product only), bound {r['bound_ms']:.3f} ms ({r['bound_by']}), share "
+            f"{r['share']:.3f} ({smi})")
+        out[name] = r
+    del full, corpus, a, bv, bias
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve10m(torch, dev, smi, rows, result) -> dict:
+    """bench_10m_serving on phase 10's rows and build (no second build):
+    the queries and the exact-f32 truth over the original rows, IVFIndex
+    under the engine's device budget at nprobe 1 / 8 / 64 and nprobe 1 at
+    large batches, FlatIndex.search and flat_search (s8, bf16). Outside the
+    phase's launch counts: the scan kernel on this 10M store at
+    SERVE10M_CHECK_NPROBES against its plain version (scan_timing), and the
+    band kernels at N=10M (band_timing)."""
+    from vectorsearch_tpu_torch.device import upload_packed
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import flat as tf
+    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
+    from vectorsearch_tpu_torch.tools import bench_10m_serving as bs
+    from vectorsearch_tpu_torch.tools import scale_corpus as sc
+
+    n = rows.codes.shape[0]
+    out, failures = {"n": n}, []
+    t0 = time.perf_counter()
+    queries = sc.make_queries(rows)
+    truth = sc.exact_truth(queries, dev, n, DIM, BUILD_K, seed=0)
+    out["truth_s"] = time.perf_counter() - t0
+    log(f"serve10m: {N_QUERIES} queries and their exact-f32 truth over the {n} original rows "
+        f"in {out['truth_s']:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["index"], out["build"], ivf = bs.index_rows(rows, result.centroids, result.assignments,
+                                                    queries, truth, dev)
+    for r in out["index"]:
+        floor = MIN_RECALL.get(r["nprobe"], MIN_RECALL_WIDE)
+        if r["batch"] == N_QUERIES and r["recall"] < floor:
+            failures.append(f"recall@10 {r['recall']:.4f} < {floor} at nprobe={r['nprobe']}")
+    launches = gs.LAUNCHES
+    qn = cosine.l2_normalize(torch.from_numpy(queries).to(dev))
+    out["scan"] = scan_timing(
+        torch, dev, smi, f"10M index store K={ivf.k_clusters} cap={ivf.cap}",
+        (ivf.buckets.codes, *ivf.folded, ivf.counts_dev), qn,
+        {p: gs.probe(qn, ivf.centroids_n, p) for p in SERVE10M_CHECK_NPROBES
+         if p <= ivf.k_clusters})
+    gs.LAUNCHES = launches
+    out["peak_device_GiB"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del ivf, qn
+    torch.cuda.empty_cache()
+    out["flat"] = bs.flat_rows(upload_packed(rows, dev), queries, truth, dev)
+    for r in out["flat"]:
+        if r["recall"] < MIN_RECALL_WIDE:
+            failures.append(f"{r['label']}: recall@10 {r['recall']:.4f} < {MIN_RECALL_WIDE}")
+    torch.cuda.empty_cache()
+    launches = tf.S8_LAUNCHES, tf.BF16_LAUNCHES
+    out["bands"] = band_timing(torch, dev, smi, rows)
+    tf.S8_LAUNCHES, tf.BF16_LAUNCHES = launches
+    out["queries"], out["truth"] = queries, truth
+    out["failures"] = failures
+    return out
+
+
+def phase_engine10m(torch, dev, smi, rows, result, queries, truth) -> dict:
+    """engine_10m_check on the first ENGINE10M_N of phase 10's rows and
+    its build's centroids and assignments (the truth computed again when
+    the rows are cut), over a temporary directory removed afterwards."""
+    from vectorsearch_tpu_torch.host import layout
+    from vectorsearch_tpu_torch.tools import engine_10m_check as ec
+    from vectorsearch_tpu_torch.tools import scale_corpus as sc
+
+    n = min(ENGINE10M_N, rows.codes.shape[0])
+    assignments = result.assignments[:n]
+    if n < rows.codes.shape[0]:
+        if n % sc.STEP:  # regen_slabs makes the first n rows again slab by slab
+            raise ValueError(f"ENGINE10M_N {n} is not a multiple of {sc.STEP}")
+        rows = layout.PackedVectors(*[a[:n] for a in rows])
+        queries = sc.make_queries(rows)
+        truth = sc.exact_truth(queries, dev, n, DIM, BUILD_K, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory(prefix="vs_engine10m_") as tmp:
+        out = ec.check(rows, result.centroids, assignments, queries, truth, dev, tmp)
+    out["peak_device_GiB"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"engine10m: {n} documents; populate {out.get('populate_s', 0):.1f} s, peak device "
+        f"memory {out['peak_device_GiB']:.2f} GiB, peak RSS {out['peak_rss_GB']:.2f} GB, "
+        f"failures {out['failures']} ({smi})")
+    return out
+
+
 
 
 def main() -> int:
@@ -2357,8 +2460,22 @@ def main() -> int:
     srv = run("server", lambda: phase_server(torch, dev, smi))
     torch.cuda.empty_cache()
     b10 = run("build10m", lambda: phase_build10m(torch, dev))
+    rows10, build10 = b10.pop("rows"), b10.pop("result")
     # outside run(): its launches are not the main path's
-    b10["profile"] = profile_build(torch, b10.pop("rows"), dev)
+    b10["profile"] = profile_build(torch, rows10, dev)
+    s10 = run("serve10m", lambda: phase_serve10m(torch, dev, smi, rows10, build10))
+    queries10, truth10 = s10.pop("queries"), s10.pop("truth")
+    e10 = run("engine10m", lambda: phase_engine10m(torch, dev, smi, rows10, build10,
+                                                   queries10, truth10))
+    del rows10
+    # the kernels' rows at the 10M shapes, beside the 1M ones
+    entries[0]["by_nprobe_10M_store"] = s10["scan"]
+    entries[0]["max_abs_err"] = max([entries[0]["max_abs_err"],
+                                     *(r["max_abs_err"] for r in s10["scan"].values())])
+    for e in entries:
+        if e["name"] in s10["bands"]:
+            e["at_10M"] = s10["bands"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], e["at_10M"]["max_abs_err"])
 
     failures = []
     for nprobe, r in idx["recall"].items():
@@ -2394,6 +2511,8 @@ def main() -> int:
     if not (b10["finite"] and b10["assigned"] == b10["n"] and b10["iterations"] >= 1
             and 1 < b10["k"] <= 2 * b10["k_asked"]):
         failures.append(f"10M build: {b10}")
+    failures += [f"serve10m phase: {f}" for f in s10["failures"]]
+    failures += [f"engine10m phase: {f}" for f in e10["failures"]]
     if "jax" in sys.modules:
         failures.append("jax was imported")
     jax_pkg = sorted(m for m in sys.modules

@@ -30,6 +30,7 @@ jax_pkg = sorted(m for m in sys.modules
                  if m == "vectorsearch_tpu" or m.startswith("vectorsearch_tpu."))
 assert not jax_pkg, jax_pkg
 print(len(names))
+print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -37,12 +38,18 @@ print(len(names))
         cwd=ROOT, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+    count, names = out.stdout.strip().splitlines()[-2:]
     # the 28 modules of the search, build, engine and server slices,
     # parallel/ (4), the port's own copies of the host modules (config,
     # constants, logger, utils.errors, quant/ (3), native, store/ (6),
-    # embed/ (7)), the graft entry points (graft_entry) and the client
-    # SDK (client)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 55
+    # embed/ (7)), the graft entry points (graft_entry), the client SDK
+    # (client), the scale checks and their HTTP driver (tools/, 5) and the
+    # quickstart (examples/, 2)
+    assert int(count) >= 62
+    for name in ("tools", "tools.scale_corpus", "tools.bench_10m_serving",
+                 "tools.engine_10m_check", "tools.http_driver", "examples",
+                 "examples.quickstart"):
+        assert f"vectorsearch_tpu_torch.{name}" in names.split()
 
 
 def test_package_pins_full_f32_products(monkeypatch):

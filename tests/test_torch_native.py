@@ -8,12 +8,15 @@ import pytest
 from vectorsearch_tpu import native as jax_native
 from vectorsearch_tpu_torch import native
 from vectorsearch_tpu_torch.quant import codec, layout
+from torch_parity import have_toolchain, load_jax_native
 
 
 @pytest.fixture(scope="module")
 def have_native():
-    if native.lib() is None or jax_native.lib() is None:
-        pytest.skip("native codec unavailable (no toolchain?)")
+    if not have_toolchain():
+        pytest.skip("native codec unavailable: no make or C++ compiler")
+    assert native.lib() is not None, "the port's native codec did not build"
+    assert load_jax_native(), "the JAX package's native codec did not load"
     return True
 
 

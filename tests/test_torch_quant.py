@@ -15,6 +15,7 @@ from hypothesis.extra import numpy as hnp
 from vectorsearch_tpu.quant import codec as jax_codec
 from vectorsearch_tpu.quant import layout as jax_layout
 from vectorsearch_tpu_torch.quant import codec, layout
+from torch_parity import load_jax_native
 
 # rows of random f32 values; ties, zeros and constant rows come up too
 VECTORS = hnp.arrays(
@@ -23,6 +24,14 @@ VECTORS = hnp.arrays(
     elements=st.floats(-1e4, 1e4, width=32, allow_subnormal=False),
 )
 PATHS = pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def both_native_codecs():
+    """The native cases hold the port's native codec against the JAX
+    package's: wait for that library where another test worker is still
+    building it, so that neither side falls back to numpy alone."""
+    load_jax_native()
 
 
 @contextlib.contextmanager

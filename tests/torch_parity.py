@@ -8,6 +8,10 @@ observed (ids, row counts, pages); `both` runs it on PORT and on JAX and
 compares the two. The port's engines run on the CPU (device="cpu"), and its
 mesh is 8 CPU shards where JAX's is its 8-device virtual CPU mesh.
 """
+import fcntl
+import os
+import shutil
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -16,6 +20,7 @@ import vectorsearch_tpu.engine.engine as jax_engine_mod
 import vectorsearch_tpu.index.ivf as jax_ivf_mod
 import vectorsearch_tpu.store.db as jax_db
 import vectorsearch_tpu.store.pgwire as jax_pgwire
+from vectorsearch_tpu import native as jax_native
 import vectorsearch_tpu_torch.engine.engine as port_engine_mod
 import vectorsearch_tpu_torch.index.ivf as port_ivf_mod
 import vectorsearch_tpu_torch.store.db as port_db
@@ -97,3 +102,42 @@ def both(scenario, *args):
     port, jax = (scenario(P, *args) for P in PACKAGES)
     assert_same(port, jax)
     return port
+
+
+def have_toolchain() -> bool:
+    """make and a C++ compiler, which both packages' native codecs build with."""
+    return bool(shutil.which("make") and shutil.which(os.environ.get("CXX", "g++")))
+
+
+def load_jax_native(timeout=120.0) -> bool:
+    """The JAX package's native codec, waiting for a build in another process.
+
+    Its loader takes no lock across processes and gives up for the whole
+    process after one failed load, so a test worker that tries while
+    another worker's `make` is still writing the .so would fall back to
+    numpy (whose dequantize may differ from the native one by an ulp).
+    Under an exclusive flock of that package's Makefile, shared by the port
+    tests that call this: the loader's own one attempt (which builds where
+    the library is missing or stale); if that fails with no library left
+    on disk, the build failed and this returns False at once. Otherwise
+    another process is building it: wait, building nothing, until the
+    library and a matching build stamp are there, then load it, until
+    `timeout` passes. False at once where there is no toolchain."""
+    if not have_toolchain():
+        return False
+    so = os.path.join(os.path.dirname(jax_native.__file__), "libvscodec.so")
+    makefile = os.path.join(os.path.dirname(jax_native.__file__), "Makefile")
+    deadline = time.monotonic() + timeout
+    with open(makefile, "rb") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            if jax_native.lib() is None and os.path.exists(so):
+                while time.monotonic() < deadline:
+                    if os.path.exists(so) and jax_native._stamp_ok():
+                        jax_native._TRIED = False  # fresh: the loader loads, builds nothing
+                        if jax_native.lib() is not None:
+                            break
+                    time.sleep(0.5)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    return jax_native.lib() is not None

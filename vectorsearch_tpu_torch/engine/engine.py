@@ -138,6 +138,9 @@ class CategoryState:
     inflight_cv: threading.Condition = field(
         default_factory=threading.Condition
     )
+    # how this process booted the category: its source (snapshot or sql)
+    # and the seconds of each step, as logged (/api/stats "boot")
+    boot: dict = field(default_factory=dict)
 
     def __post_init__(self):
         self.gate.set()
@@ -318,9 +321,11 @@ class Engine:
                 if doc_map is not None
                 else DocMap(*self.store.embedding_doc_pairs(category_id))
             )
+            state.boot = {"source": "snapshot", "rows": state.ivf.n_live,
+                          "seconds": _time.perf_counter() - t0}
             sugar().info(
                 "category %d boot: %d rows from snapshot (%.1fs)",
-                category_id, state.ivf.n_live, _time.perf_counter() - t0,
+                category_id, state.ivf.n_live, state.boot["seconds"],
             )
             return state
 
@@ -416,12 +421,16 @@ class Engine:
                 sugar().warning(
                     "boot snapshot of category %d failed: %s", category_id, e
                 )
+        state.boot = {
+            "source": "sql", "rows": len(ids), "sql_s": t_stream - t0,
+            "pack_s": t_pack - t_stream, "index_s": t_index - t_pack,
+            "snapshot_s": _time.perf_counter() - t_index,
+        }
         sugar().info(
             "category %d boot: %d rows (sql %.1fs, pack %.1fs, index %.1fs, "
             "snapshot %.1fs)",
-            category_id, len(ids), t_stream - t0,
-            t_pack - t_stream, t_index - t_pack,
-            _time.perf_counter() - t_index,
+            category_id, len(ids), state.boot["sql_s"], state.boot["pack_s"],
+            state.boot["index_s"], state.boot["snapshot_s"],
         )
         return state
 
@@ -1490,6 +1499,7 @@ class Engine:
                 "doc_map_entries": len(st.doc_map),
                 # shards of the sharded read replica searches use; 0: none
                 "replica_shards": st.sharded.mesh.size if st.sharded else 0,
+                "boot": st.boot,
             }
         from ..build.progress import tracker as _progress
 

@@ -5,11 +5,20 @@ library is missing (g++ is baked into the image; no pip packages needed).
 Falls back silently to the numpy implementations when unavailable —
 `vectorsearch_tpu_torch.quant.codec` consults `lib()` per call.
 
+Several processes may load it at once (test workers, a server and its
+child processes): the build runs under an exclusive `flock` of the
+Makefile, which every checkout has, so one process builds while the others
+wait and then load its result; the library is linked under a temporary
+name and installed by `os.replace`, so no process ever maps a partly
+written file.
+
 Set VSTPU_NO_NATIVE=1 to force the numpy path (used by parity tests).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -51,18 +60,33 @@ def _expected_stamp() -> str:
     return h.hexdigest()
 
 
-def _build(force: bool = False) -> bool:
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive across processes: an flock of the Makefile."""
+    with open(os.path.join(_DIR, "Makefile"), "rb") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build() -> bool:
+    """Link the library under a temporary name, then install it by
+    os.replace and write its stamp. The caller holds _build_lock()."""
+    tmp = os.path.join(_DIR, f"libvscodec.{os.getpid()}.so.tmp")
     try:
-        cmd = ["make", "-C", _DIR, "-s"]
-        if force:
-            cmd.append("-B")
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        if not os.path.exists(_SO):
-            return False
+        subprocess.run(
+            ["make", "-C", _DIR, "-s", "-B", f"OUT={os.path.basename(tmp)}"],
+            check=True, capture_output=True, timeout=120,
+        )
+        os.replace(tmp, _SO)
         with open(_STAMP, "w") as f:
             f.write(_expected_stamp())
         return True
     except Exception:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
         return False
 
 
@@ -85,11 +109,12 @@ def lib() -> ctypes.CDLL | None:
         if _LIB is not None or _TRIED:
             return _LIB
         _TRIED = True
-        fresh = os.path.exists(_SO) and _stamp_ok()
-        if not fresh and not _build(force=os.path.exists(_SO)):
-            return None
         try:
-            cdll = ctypes.CDLL(_SO)
+            with _build_lock():
+                # another process may have built it while this one waited
+                if not (os.path.exists(_SO) and _stamp_ok()) and not _build():
+                    return None
+                cdll = ctypes.CDLL(_SO)
         except OSError:
             return None
         i64 = ctypes.c_int64
