@@ -91,10 +91,24 @@ FAIL: line and exits 1 before the last line is printed):
      pass, ShardedFlat, ShardedIVF with and without refine held against
      IVFIndex, an Engine whose rebuild installs the replica and serves 6
      concurrent searches through the batcher);
-  8. engine: upload, rebuild (Engine.refresh_centroids), search,
+  8. hostpath (vectorsearch_tpu_torch/tools/host_profile.py and
+     bench_http_concurrent.py on phase 4's 1M x 768 rows, build and
+     queries: BASELINE config 3, nothing cut): the native codec's build
+     (openmp, serial or numpy; numpy where a C++ compiler is present
+     fails); host_profile's split of one in-process Engine.search at
+     nprobe 1 and 8 (embed, the batcher's
+     device dispatch, the SQL fetch, the rest; a cProfile to stderr) and
+     the HTTP layer on top (sequential HTTP latency minus in-process);
+     then an engine booted from an in-memory SQL store of the same rows,
+     its recall@10 at nprobe 8 (>= 0.96), and bench_http_concurrent's
+     sweep at 1, 8 and 32 clients (requests/s, dispatches, rows a
+     dispatch, p50/p99, no error), with the clients in this process and
+     then from a client process of their own. Both tools' JSON lines go
+     to stdout;
+  9. engine: upload, rebuild (Engine.refresh_centroids), search,
      search_many, delete and a snapshot reboot through Engine, with the
      deterministic noop embedder;
-  9. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
+  10. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
      this process, on a free localhost port over a temporary SQLite store
      and snapshot dir, with a deterministic embedder at D=768 (a text's
      first number names a document; its vector is bench.py's recipe).
@@ -114,15 +128,15 @@ FAIL: line and exits 1 before the last line is printed):
      with the server's status. Then `python -m vectorsearch_tpu_torch`
      with the noop embedder boots, answers an upload and a search, and
      exits 0 on SIGTERM;
-  10. the 10M build: bench_build.py's configuration, 10M x 768 clustered
+  11. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
      fixed seed, moved to host numpy once) -> build_centroids with k=4096
      and bench_build.py's arguments: build seconds, iterations, final
      churn, cluster sizes and peak device memory; then, outside the phase's
      launch counts, the same build under torch.profiler, its device time
      summed by kernel;
-  11. serve10m (vectorsearch_tpu_torch/tools/bench_10m_serving.py on phase
-     10's rows and build; no second build): 512 queries (dequantized rows
+  12. serve10m (vectorsearch_tpu_torch/tools/bench_10m_serving.py on phase
+     11's rows and build; no second build): 512 queries (dequantized rows
      plus noise, numpy seed 123) and their exact-f32 truth over the
      ORIGINAL rows, made again slab by slab on the card; IVFIndex.build
      under the engine's device budget (85% of the card: the bucket store is
@@ -135,7 +149,7 @@ FAIL: line and exits 1 before the last line is printed):
      N=10M against theirs on 64 and on 512 queries, the flat search's
      batch (s8 bit-equal, bf16 within 1e-4, the same -inf pattern), each
      timed at B=512 with its bound and library yardstick;
-  12. engine10m (vectorsearch_tpu_torch/tools/engine_10m_check.py on the
+  13. engine10m (vectorsearch_tpu_torch/tools/engine_10m_check.py on the
      first ENGINE10M_N = 2M of the same rows: cut from 10M, where the
      phase alone takes longer than the whole script may, to the largest
      size measured to keep the script within half its time limit (see
@@ -153,20 +167,21 @@ FAIL: line and exits 1 before the last line is printed):
      and 64-thread searches, batched texts with and without documents, 20
      uploads of 10 that must find themselves first, 20 deletes that must
      never return, RSS and device bytes, and a clean stop;
-  13. the kernels line, the card line, and the contract line. Each kernel's
+  14. the kernels line, the card line, and the contract line. Each kernel's
      entry has its bound (the larger of its bytes over 3.35 TB/s and its
      operations over the peak of their type, from this run's shapes), its
      share of that bound, and the time of one PyTorch call for the
      product alone (no sidecars, argmax or maxima; for accumulate,
      index_add_ of the f32 dequantized rows).
      The grouped scan's row is its time on the built index's store; the
-     rows at the 10M shapes of phase 11 stand beside the 1M ones.
+     rows at the 10M shapes of phase 12 stand beside the 1M ones.
 
-Every kernel launch count is set to 0 just before each of phases 4-12 and
-read just after: phases 4, 6, 7, 8, 9 and 12 must launch the grouped scan
+Every kernel launch count is set to 0 just before each of phases 4-13 and
+read just after: phases 4, 6, 7, 9, 10 and 13 must launch the grouped scan
 and both k-means kernels (phase 6 the scan at least once a shard of every
-search on the card's 4 shards), phase 5 both flat band kernels, phase 10
-both k-means kernels, phase 11 the scan and both band kernels. The script
+search on the card's 4 shards), phase 5 both flat band kernels, phase 8
+the scan, phase 11 both k-means kernels, phase 12 the scan and both band
+kernels. The script
 imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
 through vectorsearch_tpu_torch.host), and checks at the end that neither
@@ -175,6 +190,7 @@ jax nor anything of the JAX package vectorsearch_tpu was imported.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import signal
@@ -289,19 +305,24 @@ TIE_SHARDED = 1e-6
 # 128 for s8, 4 query blocks; band offsets past 2^31 bytes)
 SERVE10M_CHECK_NPROBES = (8, 64)
 SERVE10M_BAND_BS = (64, N_QUERIES)
-# the 10M engine phase's documents: the first ENGINE10M_N of phase 10's rows,
+# the 10M engine phase's documents: the first ENGINE10M_N of phase 11's rows,
 # a multiple of the 500,000-row slab. Cut from 10M to the largest size
 # measured to keep the whole script within 600 s, half its time limit, and
 # never below 2M (engine_scale_check's size). On H100 80GB HBM3 hosts at
 # 700 W the phase took 1340 s alone at 10M, 445.7 s at 3M (the script
 # 799 s) and 212-250 s at 2M (the script 472-529 s)
 ENGINE10M_N = 2_000_000
+# the host-path phase (BASELINE config 3, the IVF deployment: phase 4's
+# 1M x 768 rows, build and queries, nothing cut): host_profile's rounds a
+# probe width
+HOSTPATH_ROUNDS = 300
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "flat": ("flat_bands_s8", "flat_bands_bf16"),
     "sharded": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "graft": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "hostpath": ("grouped_scores",),
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
@@ -1777,6 +1798,97 @@ def phase_graft(torch, dev, smi, single, queries) -> dict:
     return out
 
 
+def phase_hostpath(torch, dev, smi, packed, centroids, assignments, queries,
+                   truth_ids) -> dict:
+    """The host-path tools (vectorsearch_tpu_torch/tools/host_profile.py and
+    bench_http_concurrent.py) on phase 4's rows, its build's centroids and
+    assignments and its queries (QueryAI: `q<i>` is query i), at the
+    engine's log level warn (the caller's level is restored after):
+    host_profile's split of one in-process search at nprobe 1 and 8 (with
+    the card's busy ms a search) and the HTTP layer on top, on an engine
+    whose index is packed straight in; then an engine booted from an
+    in-memory SQL store of the same rows (each row's centroid_id its
+    assignment, no rebuild), its recall@10 at nprobe 8 in-process against
+    the truth, and bench_http_concurrent's sweep over 1, 8 and 32 clients,
+    first with the clients in this process beside the server, then from a
+    client process of their own. Prints both tools' JSON lines and the
+    native codec's build: "numpy" where a C++ compiler is present fails
+    the phase."""
+    import shutil
+
+    from vectorsearch_tpu_torch import logger, native
+    from vectorsearch_tpu_torch.tools import bench_http_concurrent as bhc
+    from vectorsearch_tpu_torch.tools import engine_10m_check as ec
+    from vectorsearch_tpu_torch.tools import host_profile as hp
+    from vectorsearch_tpu_torch.tools import scale_corpus as sc
+    from vectorsearch_tpu_torch.tools.http_driver import serving_app
+
+    failures = []
+    n, dim = packed.codes.shape
+    codec = native.build_kind()
+    toolchain = shutil.which("make") and shutil.which(os.environ.get("CXX", "g++"))
+    log(f"hostpath: native codec {codec} (C++ compiler {'present' if toolchain else 'absent'})")
+    if codec == "numpy" and toolchain:
+        failures.append("the native codec fell back to numpy where a C++ compiler is present")
+    device = hp.device_name(dev)
+    engine_log = logging.getLogger("vectorsearch")
+    level = engine_log.level
+    logger.configure("warn")  # a line a search at info would be the phase's own cost
+    try:
+        t0 = time.perf_counter()
+        eng, store, _ = hp.build_engine(packed, centroids, assignments, ec.QueryAI(queries), dev)
+        try:
+            log(f"hostpath: host_profile's engine ({n} x {dim}) in "
+                f"{time.perf_counter() - t0:.1f} s")
+            prof = {"tool": "host_profile", "n": n, "dim": dim, "rounds": HOSTPATH_ROUNDS,
+                    "device": device, "native_codec": codec,
+                    **hp.profile(eng, store, HOSTPATH_ROUNDS)}
+        finally:
+            eng.close()
+            store.close()
+            del eng
+            ec.release(dev)
+        print(json.dumps(prof), flush=True)
+        for nprobe in hp.NPROBES:
+            split = prof[f"nprobe{nprobe}"]
+            if (split["engine_other_ms"] < 0 or not np.isfinite(split["total_ms"])
+                    or (dev.type == "cuda" and not split["device_ms"] > 0)):
+                failures.append(f"host_profile's split at nprobe {nprobe}: {split}")
+        if not np.isfinite(prof["http"]["overhead_ms"]):
+            failures.append(f"host_profile's HTTP overhead: {prof['http']}")
+
+        eng, store, secs = bhc.boot(packed, centroids, assignments, queries, dev)
+        try:
+            bench = {"tool": "bench_http_concurrent",
+                     "mode": "gpu" if dev.type == "cuda" else "cpu", "n": n,
+                     "k": len(centroids), "dim": dim, "nprobe": bhc.NPROBE,
+                     "host_cores": os.cpu_count(), "device": device, "native_codec": codec,
+                     **secs}
+            bench["recall_at_10"] = sc.recall(ec.top10(eng, queries.shape[0])[0], truth_ids)
+            if bench["recall_at_10"] < MIN_RECALL_WIDE:
+                failures.append(f"the SQL-booted engine's recall@10 {bench['recall_at_10']:.4f}"
+                                f" < {MIN_RECALL_WIDE} at nprobe {ec.NPROBE}")
+            with serving_app(eng) as port:
+                bench["sweep"] = bhc.sweep(port, eng=eng)
+                bench["sweep_client_process"] = bhc.client_process_sweep(port)
+        finally:
+            eng.close()
+            store.close()
+            del eng
+            ec.release(dev)
+    finally:
+        engine_log.setLevel(level)
+    print(json.dumps(bench), flush=True)
+    for key in ("sweep", "sweep_client_process"):
+        for r in bench[key]:
+            rows = round(r["rows_per_dispatch"] * r["dispatches"])
+            if r["errors"] or not 1 <= r["dispatches"] <= r["requests"] or rows != r["requests"]:
+                failures.append(f"bench_http_concurrent's {key} at C={r['clients']}: {r}")
+    log(f"hostpath: {n} rows, recall@10 {bench['recall_at_10']}, failures {failures} ({smi})")
+    return {"host_profile": prof, "bench_http_concurrent": bench, "native_codec": codec,
+            "failures": failures}
+
+
 def phase_engine(torch, dev, n_docs=2_000) -> dict:
     """Engine over a temporary SQLite store and snapshot dir."""
     from vectorsearch_tpu_torch.engine import Engine
@@ -2264,7 +2376,7 @@ def profile_build(torch, host, dev, k=BUILD_K, top=10) -> dict:
 
 
 def band_timing(torch, dev, smi, rows) -> dict:
-    """Both band kernels on phase 10's rows on the card (N=10M, D=768),
+    """Both band kernels on phase 11's rows on the card (N=10M, D=768),
     a hundredth of them dead: against their plain versions at each batch
     of SERVE10M_BAND_BS, queries near corpus rows (s8 bit-equal, bf16
     within KERNEL_ATOL, the same -inf pattern), then at B=N_QUERIES, the
@@ -2317,7 +2429,7 @@ def band_timing(torch, dev, smi, rows) -> dict:
 
 
 def phase_serve10m(torch, dev, smi, rows, result) -> dict:
-    """bench_10m_serving on phase 10's rows and build (no second build):
+    """bench_10m_serving on phase 11's rows and build (no second build):
     the queries and the exact-f32 truth over the original rows, IVFIndex
     under the engine's device budget at nprobe 1 / 8 / 64 and nprobe 1 at
     large batches, FlatIndex.search and flat_search (s8, bf16). Outside the
@@ -2371,7 +2483,7 @@ def phase_serve10m(torch, dev, smi, rows, result) -> dict:
 
 
 def phase_engine10m(torch, dev, smi, rows, result, queries, truth) -> dict:
-    """engine_10m_check on the first ENGINE10M_N of phase 10's rows and
+    """engine_10m_check on the first ENGINE10M_N of phase 11's rows and
     its build's centroids and assignments (the truth computed again when
     the rows are cut), over a temporary directory removed afterwards."""
     from vectorsearch_tpu_torch.host import layout
@@ -2399,6 +2511,7 @@ def phase_engine10m(torch, dev, smi, rows, result, queries, truth) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2454,7 +2567,12 @@ def main() -> int:
     # the graft entry points, the full-width forward on phase 4's index
     grf = run("graft", lambda: phase_graft(torch, dev, smi, sharded_inputs[-1],
                                            sharded_inputs[4]))
+    # phase 4's host rows, build, queries and truth; its device index goes
+    hostpath_inputs = [sharded_inputs[i] for i in (0, 2, 3, 4, 5)]
     del sharded_inputs
+    torch.cuda.empty_cache()
+    hst = run("hostpath", lambda: phase_hostpath(torch, dev, smi, *hostpath_inputs))
+    del hostpath_inputs
     torch.cuda.empty_cache()
     eng = run("engine", lambda: phase_engine(torch, dev))
     srv = run("server", lambda: phase_server(torch, dev, smi))
@@ -2488,6 +2606,7 @@ def main() -> int:
             failures.append(f"not launched in the {phase} phase: {idle}")
     failures += [f"sharded phase: {f}" for f in shd["failures"]]
     failures += [f"graft phase: {f}" for f in grf["failures"]]
+    failures += [f"hostpath phase: {f}" for f in hst["failures"]]
     # the scan once a shard of every search on the card's shards
     if launches["sharded"]["grouped_scores"] < SHARDED_SHARDS * shd["virtual_searches"]:
         failures.append(f"sharded phase: {launches['sharded']['grouped_scores']} scan "
@@ -2527,6 +2646,7 @@ def main() -> int:
     for e in entries:
         e["launches_by_phase"] = {p: v[e["name"]] for p, v in launches.items()}
         e["launches"] = sum(e["launches_by_phase"].values())
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

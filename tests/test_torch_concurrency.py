@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 from test_engine import WordHashAI
-from torch_parity import both, small_buckets  # noqa: F401 (autouse fixture)
+from torch_parity import JAX, PORT, both, small_buckets  # noqa: F401 (autouse fixture)
 
 
 def docs(n, fmt="w{m} base {i}", mod=3):
@@ -30,17 +30,25 @@ def test_concurrent_upload_and_search():
         store = P.Store(":memory:")
         eng = P.Engine(store, WordHashAI(), cache=P.EngineCache(ttl=0.0))
         errors = []
+        # the searchers start once the category exists: the owner and
+        # category creation race of an upload that joins a search's miss
+        # is held deterministically by test_upload_joining_a_search_miss
+        created = threading.Event()
 
         def uploader(tag):
             try:
                 for i in range(5):
                     eng.upload("alice", "docs", [
                         {"name": f"{tag}-{i}", "document": {"text": f"topic{tag} item {i}"}}])
+                    created.set()
             except Exception as e:  # pragma: no cover
                 errors.append(e)
+            finally:
+                created.set()
 
         def searcher():
             try:
+                assert created.wait(30)
                 for _ in range(10):
                     eng.search("alice", "docs", "topic1 item", count=3)
             except Exception as e:  # pragma: no cover
@@ -66,6 +74,79 @@ def test_concurrent_upload_and_search():
 
     n_docs, n_emb, names, _ = both(scenario)
     assert n_docs == n_emb == 15 and len(set(names)) == 15
+
+
+class _JoinSignal(threading.Event):
+    """A flight's event that reports each waiter as it starts to wait."""
+
+    def __init__(self, joined):
+        super().__init__()
+        self.joined = joined
+
+    def wait(self, timeout=None):
+        self.joined.set()
+        return super().wait(timeout)
+
+
+@pytest.mark.parametrize("row", ["owner", "category"])
+def test_upload_joining_a_search_miss(row):
+    """A search misses the owner (or the category: the owner exists) and
+    its read is held while an upload of the same name arrives and waits on
+    the search's single flight of that key. The port's upload runs its own
+    get_or_create and creates the row; the JAX package's upload is handed
+    the search's None and raises AttributeError at `.id` (the reference
+    fault, documented: vectorsearch_tpu/engine/cache.py:49-54)."""
+    def scenario(P):
+        store = P.Store(":memory:")
+        eng = P.Engine(store, WordHashAI(), cache=P.EngineCache(ttl=60.0))
+        if row == "category":
+            store.get_or_create_owner("alice")
+        cache = eng.cache.owners if row == "owner" else eng.cache.categories
+        read = store.get_owner if row == "owner" else store.get_category
+        in_read, release, joined = threading.Event(), threading.Event(), threading.Event()
+
+        def held_read(*a):
+            in_read.set()
+            assert release.wait(30)
+            return read(*a)
+
+        setattr(store, read.__name__, held_read)
+        found, uploaded = [], []
+        search = threading.Thread(target=lambda: found.append(
+            eng.search("alice", "docs", "alpha words", count=3)))
+        search.start()
+        assert in_read.wait(30)
+        (flight,) = cache._inflight.values()
+        flight.event = _JoinSignal(joined)
+
+        def upload():
+            try:
+                uploaded.append(eng.upload("alice", "docs", [
+                    {"name": "a", "document": {"text": "alpha words"}}]))
+            except Exception as e:
+                uploaded.append(e)
+
+        up = threading.Thread(target=upload)
+        up.start()
+        assert joined.wait(30), "the upload did not join the search's flight"
+        release.set()
+        for t in (search, up):
+            t.join(30)
+            assert not t.is_alive()
+        setattr(store, read.__name__, read)
+        out = {"search": found, "upload": uploaded[0]}
+        if not isinstance(uploaded[0], Exception):
+            out["hits"] = [h.document_id for h in eng.search("alice", "docs", "alpha words")]
+        eng.close()
+        store.close()
+        return out
+
+    port = scenario(PORT)
+    assert port == {"search": [[]], "upload": [1], "hits": [1]}
+    jax = scenario(JAX)
+    assert jax["search"] == [[]]
+    assert isinstance(jax["upload"], AttributeError)
+    assert "'NoneType' object has no attribute 'id'" in str(jax["upload"])
 
 
 def test_build_lock_contention(tmp_path):

@@ -51,7 +51,14 @@ class TTLCache:
             if flight.error is not None:
                 # per-waiter copy (see utils.errors.fresh_exc)
                 raise fresh_exc(flight.error)
-            return flight.value
+            if flight.value is not None:
+                return flight.value
+            # The flight is keyed by key alone, whatever its loader: a
+            # leader that only reads (a search's get_owner) answers None
+            # for a row that this waiter's loader (an upload's
+            # get_or_create_owner) would create. That miss is not this
+            # caller's answer, so run its own loader once.
+            return self._keep(key, loader())
         try:
             value = loader()
         except BaseException as e:
@@ -59,18 +66,21 @@ class TTLCache:
             raise
         else:
             flight.value = value
-            # None = not-found: do NOT cache it (reference parity — a miss
-            # propagates ErrRecordNotFound and is never stored, so an
-            # upload right after a failed search can create the row,
-            # cache/middleware.go:22-56)
-            if value is not None:
-                with self._lock:
-                    self._entries[key] = (value, time.monotonic() + self.ttl)
-            return value
+            return self._keep(key, value)
         finally:
             with self._lock:
                 self._inflight.pop(key, None)
             flight.event.set()
+
+    def _keep(self, key, value):
+        """Cache a loaded value and return it. None = not-found: do NOT
+        cache it (reference parity — a miss propagates ErrRecordNotFound
+        and is never stored, so an upload right after a failed search can
+        create the row, cache/middleware.go:22-56)."""
+        if value is not None:
+            with self._lock:
+                self._entries[key] = (value, time.monotonic() + self.ttl)
+        return value
 
     def invalidate(self, key=None):
         with self._lock:

@@ -1,9 +1,12 @@
 """ctypes loader for the native host codec (codec.cpp).
 
 Builds lazily with the in-image toolchain on first use if the shared
-library is missing (g++ is baked into the image; no pip packages needed).
-Falls back silently to the numpy implementations when unavailable —
-`vectorsearch_tpu_torch.quant.codec` consults `lib()` per call.
+library is missing (g++ is baked into the image; no pip packages needed):
+with OpenMP, and where that build fails (a compiler without libgomp) once
+more without it, which gives the same bytes on one thread. Falls back to
+the numpy implementations when no build succeeds —
+`vectorsearch_tpu_torch.quant.codec` consults `lib()` per call, and
+`build_kind()` says which of the three a process uses.
 
 Several processes may load it at once (test workers, a server and its
 child processes): the build runs under an exclusive `flock` of the
@@ -31,24 +34,29 @@ _SO = os.path.join(_DIR, "libvscodec.so")
 _STAMP = os.path.join(_DIR, ".build_stamp")
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_KIND: str | None = None  # the loaded library's build: "openmp" or "serial"
 _TRIED = False
+# the builds to try, in order: (kind, make's variable overrides)
+_BUILDS = (("openmp", ()), ("serial", ("OPENMP=",)))
 
 
 def _expected_stamp() -> str:
-    """Hash of the source + the host CPU identity.
+    """Hash of the source and Makefile + the host CPU identity.
 
     The .so is built -march=native: a VM restart can land the persisted
     binary on a different host CPU, where loading it risks SIGILL (same
     pathology as the stale XLA:CPU AOT cache — see CLAUDE.md). Keying the
     stamp on /proc/cpuinfo's model+flags forces a rebuild in that case,
-    and hashing codec.cpp forces one when the source changes.
+    and hashing codec.cpp and the Makefile forces one when the source or
+    the flags change.
     """
     h = hashlib.sha256()
-    try:
-        with open(os.path.join(_DIR, "codec.cpp"), "rb") as f:
-            h.update(f.read())
-    except OSError:
-        pass
+    for name in ("codec.cpp", "Makefile"):
+        try:
+            with open(os.path.join(_DIR, name), "rb") as f:
+                h.update(f.read())
+        except OSError:
+            pass
     try:
         with open("/proc/cpuinfo", "rb") as f:
             for line in f:
@@ -71,36 +79,43 @@ def _build_lock():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def _build() -> bool:
-    """Link the library under a temporary name, then install it by
-    os.replace and write its stamp. The caller holds _build_lock()."""
+def _build() -> str | None:
+    """Link the library under a temporary name, the OpenMP build first and
+    the serial one where that fails, then install it by os.replace and
+    write its stamp (the hash and the build's kind). Returns the kind, or
+    None if no build succeeded. The caller holds _build_lock()."""
     tmp = os.path.join(_DIR, f"libvscodec.{os.getpid()}.so.tmp")
-    try:
-        subprocess.run(
-            ["make", "-C", _DIR, "-s", "-B", f"OUT={os.path.basename(tmp)}"],
-            check=True, capture_output=True, timeout=120,
-        )
-        os.replace(tmp, _SO)
-        with open(_STAMP, "w") as f:
-            f.write(_expected_stamp())
-        return True
-    except Exception:
-        with contextlib.suppress(OSError):
-            os.unlink(tmp)
-        return False
+    for kind, overrides in _BUILDS:
+        try:
+            subprocess.run(
+                ["make", "-C", _DIR, "-s", "-B", f"OUT={os.path.basename(tmp)}",
+                 *overrides],
+                check=True, capture_output=True, timeout=120,
+            )
+            os.replace(tmp, _SO)
+            with open(_STAMP, "w") as f:
+                f.write(f"{_expected_stamp()} {kind}")
+            return kind
+        except (OSError, subprocess.SubprocessError):
+            with contextlib.suppress(OSError):
+                os.unlink(tmp)
+    return None
 
 
-def _stamp_ok() -> bool:
+def _stamp_kind() -> str | None:
+    """The installed library's build kind if its stamp matches this
+    source and host, else None."""
     try:
         with open(_STAMP) as f:
-            return f.read().strip() == _expected_stamp()
+            digest, _, kind = f.read().strip().partition(" ")
     except OSError:
-        return False
+        return None
+    return kind if digest == _expected_stamp() and kind in dict(_BUILDS) else None
 
 
 def lib() -> ctypes.CDLL | None:
     """The loaded native library, or None (numpy fallback)."""
-    global _LIB, _TRIED
+    global _LIB, _KIND, _TRIED
     if os.environ.get("VSTPU_NO_NATIVE") == "1":
         return None
     if _LIB is not None or _TRIED:
@@ -112,7 +127,9 @@ def lib() -> ctypes.CDLL | None:
         try:
             with _build_lock():
                 # another process may have built it while this one waited
-                if not (os.path.exists(_SO) and _stamp_ok()) and not _build():
+                kind = _stamp_kind() if os.path.exists(_SO) else None
+                kind = kind or _build()
+                if kind is None:
                     return None
                 cdll = ctypes.CDLL(_SO)
         except OSError:
@@ -127,8 +144,14 @@ def lib() -> ctypes.CDLL | None:
         cdll.vs_abi_version.restype = ctypes.c_int
         if cdll.vs_abi_version() != 1:
             return None
-        _LIB = cdll
+        _LIB, _KIND = cdll, kind
         return _LIB
+
+
+def build_kind() -> str:
+    """Which codec this process uses: "openmp" or "serial" (the native
+    library's build), or "numpy" (no library, or VSTPU_NO_NATIVE=1)."""
+    return "numpy" if lib() is None else _KIND
 
 
 def quantize_f32(v: np.ndarray) -> np.ndarray | None:

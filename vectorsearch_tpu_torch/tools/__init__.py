@@ -7,9 +7,14 @@ tools/):
                       the flat path on the same rows
   engine_10m_check    the whole engine booted from SQL and from its
                       snapshot, then served over HTTP with streaming writes
+  host_profile        one engine search split into its host layers (embed,
+                      the batcher's device dispatch, SQL, the rest) and
+                      the HTTP layer on top
+  bench_http_concurrent  served requests/s, dispatches and rows a dispatch,
+                      p50/p99 under 1, 8 and 32 concurrent HTTP clients
   http_driver         the HTTP helpers those checks and chip_smoke.py drive
                       the entry with (a free port, a client, a fan-out, the
-                      entry served from a thread)
+                      entry or one engine's router served from a thread)
 
 Each check runs alone with `python -m vectorsearch_tpu_torch.tools.<name>` and
 exposes the functions chip_smoke.py calls with the rows it already holds.

@@ -1,8 +1,10 @@
 """Drive the port's HTTP API from a test or check: a free local port, a
 wait until the server listens, a keep-alive client, a fan-out over
-threads, and the entry's run() served from a thread of this process."""
+threads, and the entry's run() or one engine's router served from a
+thread of this process."""
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import http.client
 import json
@@ -33,8 +35,8 @@ def wait_listening(port, alive, timeout) -> None:
 class Client:
     """One keep-alive HTTP/1.1 connection (the standard library's client)."""
 
-    def __init__(self, port, timeout=300):
-        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    def __init__(self, port, timeout=300, host="127.0.0.1"):
+        self.conn = http.client.HTTPConnection(host, port, timeout=timeout)
 
     def call(self, method, path, obj=None):
         """(status, headers, body): JSON bodies decoded, others as bytes."""
@@ -87,3 +89,31 @@ def serving(entry, cfg, ai, port, timeout=600):
         thread.join(timeout)
     if thread.is_alive() or rc != [0]:
         raise AssertionError(f"the server did not stop cleanly (run() returned {rc})")
+
+
+APP_TIMEOUT = 60  # seconds for serving_app's server to start, stop and join
+
+
+@contextlib.contextmanager
+def serving_app(engine):
+    """api/http.py's router over `engine` on an HTTPServer at a free
+    localhost port, its event loop in a thread of this process, until the
+    block ends; yields the port. No TLS, store sync or startup work: the
+    HTTP layer alone, on an engine the caller made and closes."""
+    from ..api import build_app
+    from ..api.http import HTTPServer
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="vstpu-http", daemon=True)
+    thread.start()
+    try:
+        server = asyncio.run_coroutine_threadsafe(
+            HTTPServer(build_app(engine)).start("127.0.0.1", 0), loop).result(APP_TIMEOUT)
+        try:
+            yield server.port
+        finally:
+            asyncio.run_coroutine_threadsafe(server.close(), loop).result(APP_TIMEOUT)
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(APP_TIMEOUT)
+        loop.close()
