@@ -51,9 +51,10 @@ FAIL: line and exits 1 before the last line is printed):
         product alone); then each kernel under other schedules (one tile a
         block, 64 queries a block, shallower rings);
   4. index at the bench's scale: bench.py's 1M x 768 clustered corpus and
-     512 queries (recipe copied), exact-f32 ground truth, the k-means build
-     with bench.py's arguments, IVFIndex.build, then IVFIndex.search at
-     nprobe 1, 2, 8, 64 and -1 (recall@10 and QPS), 10,000 inserts that
+     512 queries (the port's bench.make_corpus, make_queries), exact-f32
+     ground truth, the k-means build with bench.py's arguments,
+     IVFIndex.build, then IVFIndex.search at nprobe 1, 2, 8, 64 and -1
+     (recall@10 and QPS), 10,000 inserts that
      must find themselves first and 10,000 deletes that must never return;
      the searches once more under torch.profiler, device time by kind of
      kernel beside the unprofiled wall (outside the phase's launch counts);
@@ -80,6 +81,14 @@ FAIL: line and exits 1 before the last line is printed):
      document never returns); and child processes, one a card (one on a
      machine with one card), that join an `nccl` group through
      maybe_initialize and search a ShardedIVF over global_mesh();
+  6b. batchsweep (vectorsearch_tpu_torch/tools/batch_sweep.py's sweep at its
+     defaults on phase 4's index before any write): at nprobe 1 and 2 and
+     B 512, 1024, 2048 and 4096, recall@10 at each point's shape (the 1M
+     cell's floors), ms and QPS a search on distinct queries, every point
+     finite and positive; then bench's widest bulk shape (nprobe 2,
+     B=65536): the scan kernel on that call's groups against its plain
+     version, the call's top-10 against the same rows searched 512 at a
+     time (sets equal but at ties), and its recall at the floor;
   7. graft: the port's graft entry points (vectorsearch_tpu_torch/graft_entry.py):
      entry()'s forward (probe + grouped scan, nprobe=2, k=10) on the card at
      its example shape against the same function on CPU copies of its
@@ -105,6 +114,20 @@ FAIL: line and exits 1 before the last line is printed):
      dispatch, p50/p99, no error), with the clients in this process and
      then from a client process of their own. Both tools' JSON lines go
      to stdout;
+  8b. bench: `python -m vectorsearch_tpu_torch.bench` in a subprocess at its
+     defaults (bench.py's 1M x 768, K=1024; nothing cut), its setup cache
+     in a fresh temporary directory removed after, so the setup (corpus,
+     queries, exact-f32 truth) runs on the card: exit 0, a complete
+     headline line with a positive value, a recall/QPS line for every
+     planned row (ivf+refine at nprobe 1, 2, 8, 64 at B=512; bulk_plan's
+     eight points, 65536 and 16384 at nprobe 1 and 2, 8192 and 4096 at 8,
+     2048 and 1024 at 64; flat+refine B=512), the IVF rows at the 1M cell's
+     floors and flat+refine >= 0.96, and its launch line;
+  8c. benchbuild: `python -m vectorsearch_tpu_torch.bench_build` in a
+     subprocess with VSTPU_BUILD_N=1,000,000 (BENCHBUILD_N: cut from 10M,
+     whose build phase 11 runs with the same arguments), its cache as
+     bench's: exit 0, its JSON line, the max/mean cluster line, its launch
+     line;
   9. engine: upload, rebuild (Engine.refresh_centroids), search,
      search_many, delete and a snapshot reboot through Engine, with the
      deterministic noop embedder;
@@ -130,8 +153,9 @@ FAIL: line and exits 1 before the last line is printed):
      exits 0 on SIGTERM;
   11. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
-     fixed seed, moved to host numpy once) -> build_centroids with k=4096
-     and bench_build.py's arguments: build seconds, iterations, final
+     fixed seed, moved to host numpy once) -> vectorsearch_tpu_torch's
+     bench_build.build (build_centroids with k=4096 and bench_build.py's
+     arguments): build seconds, iterations, final
      churn, cluster sizes and peak device memory; then, outside the phase's
      launch counts, the same build under torch.profiler, its device time
      summed by kernel;
@@ -177,11 +201,12 @@ FAIL: line and exits 1 before the last line is printed):
      rows at the 10M shapes of phase 12 stand beside the 1M ones.
 
 Every kernel launch count is set to 0 just before each of phases 4-13 and
-read just after: phases 4, 6, 7, 9, 10 and 13 must launch the grouped scan
-and both k-means kernels (phase 6 the scan at least once a shard of every
-search on the card's 4 shards), phase 5 both flat band kernels, phase 8
-the scan, phase 11 both k-means kernels, phase 12 the scan and both band
-kernels. The script
+read just after (for 8b and 8c, which run in a subprocess, the counts
+that process logs): phases 4, 6, 7, 8b, 9, 10 and 13 must launch the
+grouped scan and both k-means kernels (phase 6 the scan at least once a
+shard of every search on the card's 4 shards), phase 5 both flat band
+kernels, phases 6b and 8 the scan, phases 8c and 11 both k-means kernels,
+phase 12 the scan and both band kernels. The script
 imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
 through vectorsearch_tpu_torch.host), and checks at the end that neither
@@ -203,7 +228,7 @@ import traceback
 
 import numpy as np
 
-# bench.py's corpus and query recipe (bench.py:162-172, :207-211)
+# bench.py's corpus and queries (the port's bench.make_corpus, make_queries)
 N, DIM, K_GEN = 1_000_000, 768, 1024
 N_QUERIES, TOPK, REFINE = 512, 10, 32
 NPROBES = (1, 2, 8, 64, -1)
@@ -316,13 +341,31 @@ ENGINE10M_N = 2_000_000
 # 1M x 768 rows, build and queries, nothing cut): host_profile's rounds a
 # probe width
 HOSTPATH_ROUNDS = 300
+# the bench harness (vectorsearch_tpu_torch/bench.py, bench_build.py), each
+# a subprocess of this script: its time limit, and bench_build's rows, cut
+# from its 10M (phase 11 runs the 10M build with the same arguments, and
+# bench_build.py's host recipe at 10M writes a 7.7 GB cache)
+HARNESS_TIMEOUT_S = 600
+BENCHBUILD_N = 1_000_000
+# bulk_check's reference: the widest bulk batch searched this many rows a call
+BULK_CHECK_SPLIT = 512
+# the harness's log lines read by the bench phases
+BENCH_ROW = re.compile(r"bench: (\S+ \S+) recall@10=([\d.]+) qps/chip=(\d+) \(batch (\d+)\)")
+BENCH_BULK = re.compile(r"bench: (ivf\+refine nprobe=\d+) B=(\d+) \(bulk\) qps/chip=(\d+) "
+                        r"\(recall reused from B=\d+: ([\d.]+)\)")
+HARNESS_LAUNCHES = re.compile(r"bench: kernel launches (\{.*\})")
+BUILD_LINE = re.compile(r"build-bench: (\d+) centroids over (\d+) vectors in ([\d.]+)s; "
+                        r"max/mean cluster (\d+)/(\d+)")
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "flat": ("flat_bands_s8", "flat_bands_bf16"),
     "sharded": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "batchsweep": ("grouped_scores",),
     "graft": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "hostpath": ("grouped_scores",),
+    "bench": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
+    "benchbuild": ("kmeans_assign", "kmeans_accumulate"),
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
@@ -333,26 +376,6 @@ PHASE_KERNELS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def make_corpus(n, dim, k, seed=0):
-    """Clustered synthetic corpus (bench.py make_corpus, copied)."""
-    rng = np.random.default_rng(seed)
-    centers = rng.standard_normal((k, dim), dtype=np.float32)
-    assign = rng.integers(0, k, size=n)
-    out = centers[assign] * np.float32(2.0)
-    for start in range(0, n, 100_000):
-        end = min(start + 100_000, n)
-        out[start:end] += rng.standard_normal((end - start, dim), dtype=np.float32)
-    return out
-
-
-def make_queries(data, n_queries, seed=123):
-    """bench.py's queries: corpus rows plus 0.1 gaussian noise."""
-    rng = np.random.default_rng(seed)
-    q_idx = rng.choice(data.shape[0], size=n_queries, replace=False)
-    noise = rng.normal(size=(n_queries, data.shape[1])).astype(np.float32) * 0.1
-    return (data[q_idx] + noise).astype(np.float32)
 
 
 def bound(bytes_moved, ops, peak_ops) -> dict:
@@ -1190,8 +1213,7 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
     the index before any write to phase_sharded; the scan kernel is timed
     on the built index's own store under "scan" (those launches are taken
     out of the phase's count)."""
-    from vectorsearch_tpu_torch.build import build_centroids
-    from vectorsearch_tpu_torch.device import check_exact_f32
+    from vectorsearch_tpu_torch.bench import build_kmeans, exact_truth, make_corpus, make_queries
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.index import IVFIndex
     from vectorsearch_tpu_torch.kernels import cosine
@@ -1202,26 +1224,13 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
     packed = layout.pack_float(data)
     queries = make_queries(data, n_queries)
     ids = np.arange(1, n + 1, dtype=np.int64)
-    # exact f32 ground truth on the card, TF32 off
-    corpus = torch.from_numpy(data).to(dev)
-    corpus /= corpus.norm(dim=-1, keepdim=True)
-    qn = torch.from_numpy(queries).to(dev)
-    qn /= qn.norm(dim=-1, keepdim=True)
-    check_exact_f32(qn)
-    truth = np.concatenate([
-        torch.topk(qn[i : i + 64] @ corpus.T, TOPK, dim=-1).indices.cpu().numpy()
-        for i in range(0, n_queries, 64)
-    ])
-    del corpus, data
-    torch.cuda.empty_cache()
+    truth = exact_truth(data, queries, dev)  # on the card, TF32 off
+    del data
     truth_ids = ids[truth]
     log(f"index: corpus {n}x{dim}, queries and f32 truth in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    result = build_centroids(
-        packed, k=k_gen, min_cluster_size=max(1, (n // k_gen) // 10),
-        max_iters=10, superset_iters=4, chunk=65_536, device=dev,
-    )
+    result = build_kmeans(packed, k_gen, dev)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ivf = IVFIndex.build(packed, ids, result.centroids,
@@ -1428,6 +1437,7 @@ import numpy as np
 import torch.distributed as dist
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
+from vectorsearch_tpu_torch.bench import make_corpus, make_queries
 from vectorsearch_tpu_torch.host import layout
 from vectorsearch_tpu_torch.index import IVFIndex, assign_clusters
 from vectorsearch_tpu_torch.parallel import ShardedIVF
@@ -1436,8 +1446,8 @@ from vectorsearch_tpu_torch.parallel.distributed import global_mesh, maybe_initi
 world, rank = int(sys.argv[3]), int(sys.argv[4])
 assert maybe_initialize(sys.argv[2], world, rank)
 mesh = global_mesh(1 if world > 1 else None)
-data = cs.make_corpus(50_000, cs.DIM, 64, seed=3)
-packed, q = layout.pack_float(data), cs.make_queries(data, 256)
+data = make_corpus(50_000, cs.DIM, 64, seed=3)
+packed, q = layout.pack_float(data), make_queries(data, 256)
 ids = np.arange(1, 50_001, dtype=np.int64)
 cents = data[np.random.default_rng(4).choice(50_000, 64, replace=False)]
 assign = assign_clusters(packed, cents, device=mesh.devices[0])
@@ -1889,6 +1899,189 @@ def phase_hostpath(torch, dev, smi, packed, centroids, assignments, queries,
             "failures": failures}
 
 
+def bulk_check(torch, dev, packed, queries, truth_ids, ivf) -> dict:
+    """The search at bench's widest bulk shape (nprobe 2, B = the largest
+    BULK_BATCH, at most n): the queries, then bench.query_pool rows up to
+    B, in one call. The scan kernel on that call's groups against its
+    plain version (check_scan; those launches are taken out of the
+    phase's count), the call's top-10 against the same rows searched
+    BULK_CHECK_SPLIT at a time (sets equal but at a tie within
+    TIE_SHARDED), and the queries' recall@10 at the nprobe-2 floor."""
+    from vectorsearch_tpu_torch import bench
+    from vectorsearch_tpu_torch.kernels import cosine
+    from vectorsearch_tpu_torch.kernels import grouped_scan as gs
+    from vectorsearch_tpu_torch.tools.scale_corpus import sets_differ
+
+    nprobe, nq = 2, len(queries)
+    b = max(x for x in bench.BULK_BATCH if x <= packed.codes.shape[0])
+    q = torch.from_numpy(np.concatenate([queries, bench.query_pool(packed, b - nq)])).to(dev)
+    fn, id_map = bench.ivf_search(ivf, nprobe), bench.slot_ids(ivf)
+    s, i = (x.cpu().numpy() for x in fn(q))
+    parts = [fn(q[j : j + BULK_CHECK_SPLIT]) for j in range(0, b, BULK_CHECK_SPLIT)]
+    ws, wi = (np.concatenate([p[f].cpu().numpy() for p in parts]) for f in (0, 1))
+    got, want = id_map(i), id_map(wi)
+    out = {
+        "batch": b, "nprobe": nprobe,
+        "recall": float(np.mean([len(set(got[r]) & set(truth_ids[r])) / TOPK
+                                 for r in range(nq)])),
+        "sets_differ": sets_differ(s, got, ws, want, TIE_SHARDED),
+        "max_score_diff": float(np.abs(s - ws).max()),
+    }
+    del parts
+    launches_before = gs.LAUNCHES
+    qn = cosine.l2_normalize(q)
+    qt, gcl, qidx, _ = gs.build_groups(gs.probe(qn, ivf.centroids_n, nprobe), ivf.k_clusters)
+    args = (qn.bfloat16()[qidx], qn.sum(-1)[qidx], gcl, ivf.counts_dev, ivf.buckets.codes,
+            *ivf.folded)
+    out["groups"] = int(gcl.numel())
+    out["scan_max_abs_err"], _, _ = check_scan(
+        torch, gs, args, 128, f"bulk nprobe={nprobe} B={b} G={out['groups']}")
+    gs.LAUNCHES = launches_before
+    del args, qn, q
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_batchsweep(torch, dev, smi, packed, queries, truth_ids, ivf) -> dict:
+    """vectorsearch_tpu_torch/tools/batch_sweep.py's sweep at its defaults
+    (B 512 to 4096 at nprobe 1 and 2, distinct queries) on phase 4's index
+    before any write: every point finite and positive, recall@10 at each
+    point's shape at the 1M cell's floors. Then bulk_check at bench's
+    widest bulk shape: the kernel, the call's sets and its recall."""
+    from vectorsearch_tpu_torch.tools import batch_sweep
+
+    rows = batch_sweep.sweep(ivf, packed, queries, truth_ids, dev)
+    failures = []
+    want = [(p, b) for p in batch_sweep.NPROBES for b in batch_sweep.BATCHES]
+    if [(r["nprobe"], r["batch"]) for r in rows] != want:
+        failures.append(f"the sweep's points {[(r['nprobe'], r['batch']) for r in rows]} "
+                        f"are not {want}")
+    for r in rows:
+        floor = MIN_RECALL.get(r["nprobe"], MIN_RECALL_WIDE)
+        if not (np.isfinite([r["ms"], r["qps"]]).all() and r["ms"] > 0 and r["qps"] > 0
+                and r["recall"] >= floor):
+            failures.append(f"batch sweep point {r} (recall floor {floor})")
+        log(f"batchsweep: nprobe={r['nprobe']} B={r['batch']}: {r['ms']:.3f} ms a search, "
+            f"{r['qps']:.0f} QPS, recall@10 {r['recall']:.4f} ({smi})")
+    bulk = bulk_check(torch, dev, packed, queries, truth_ids, ivf)
+    floor = MIN_RECALL.get(bulk["nprobe"], MIN_RECALL_WIDE)
+    if bulk["sets_differ"] or bulk["recall"] < floor:
+        failures.append(f"bulk check {bulk} (recall floor {floor})")
+    log(f"batchsweep: bulk nprobe={bulk['nprobe']} B={bulk['batch']} ({bulk['groups']} "
+        f"groups): scan max |kernel - plain| {bulk['scan_max_abs_err']:.2e}, "
+        f"{bulk['sets_differ']} rows whose top-10 differs from {BULK_CHECK_SPLIT} at a time "
+        f"(max score diff {bulk['max_score_diff']:.2e}), recall@10 {bulk['recall']:.4f}")
+    return {"rows": rows, "bulk": bulk, "failures": failures}
+
+
+def harness_run(module, extra_env) -> dict:
+    """`python -m <module>` from the checkout's root, with VSTPU_BENCH_CACHE
+    a fresh temporary directory removed afterwards (no cache before the
+    run, so its setup runs on this device; none left after it). The
+    environment is otherwise this process's: on the card the harness takes
+    its default device. Returns its exit code, output, log, seconds and the
+    kernel launches its last launch line reports."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="vs_bench_") as cache:
+        env = dict(os.environ, PYTHONPATH=root, VSTPU_BENCH_CACHE=cache, **extra_env)
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", module], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=HARNESS_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+    counts = HARNESS_LAUNCHES.findall(p.stderr)
+    return {"rc": p.returncode, "stdout": p.stdout, "stderr": p.stderr, "secs": secs,
+            "subprocess_launches": json.loads(counts[-1]) if counts else {}}
+
+
+def last_json(stdout) -> dict:
+    """The last stdout line as JSON ({} when there is none or it is not JSON)."""
+    lines = stdout.strip().splitlines()
+    try:
+        return json.loads(lines[-1]) if lines else {}
+    except ValueError:
+        return {}
+
+
+def phase_bench(smi) -> dict:
+    """`python -m vectorsearch_tpu_torch.bench` at its defaults (bench.py's
+    1M x 768, K=1024; nothing cut) in a subprocess: exit 0; a last line with
+    the contract's four keys, complete (no NO MEASUREMENT, no partial) and a
+    positive value; a recall/QPS line for every row the harness plans (the
+    nprobe sweep at B=512, bulk_plan's points, flat+refine) with the IVF
+    rows at the 1M cell's floors and flat+refine at MIN_RECALL_WIDE; the
+    harness's launch line (the scan and both k-means kernels)."""
+    from vectorsearch_tpu_torch import bench
+
+    out = harness_run("vectorsearch_tpu_torch.bench", {})
+    err, failures = out["stderr"], []
+    if out["rc"] != 0:
+        failures.append(f"exit {out['rc']}; its log ends:\n{err[-3000:]}")
+    head = last_json(out["stdout"])
+    metric = str(head.get("metric", ""))
+    if (set(head) != {"metric", "value", "unit", "vs_baseline"} or "NO MEASUREMENT" in metric
+            or "partial" in metric or not head.get("value", 0) > 0):
+        failures.append(f"the headline line: {head or out['stdout'][-500:]!r}")
+    rows = {m[1]: {"recall": float(m[2]), "qps": float(m[3]), "batch": int(m[4])}
+            for m in BENCH_ROW.finditer(err)}
+    for m in BENCH_BULK.finditer(err):
+        rows[f"{m[1]} B={m[2]} (bulk)"] = {"recall": float(m[4]), "qps": float(m[3]),
+                                            "batch": int(m[2])}
+    nprobes = list(dict.fromkeys((1, 2, bench.NPROBE, 64)))
+    expected = [f"ivf+refine nprobe={p}" for p in nprobes]
+    expected += [f"ivf+refine nprobe={p} B={b} (bulk)"
+                 for p, batches in bench.bulk_plan(nprobes, bench.N).items() for b in batches]
+    expected.append(f"flat+refine B={bench.FLAT_BATCH}")
+    missing = [label for label in expected if label not in rows]
+    if missing:
+        failures.append(f"no measurement of {missing}")
+    for label, r in rows.items():
+        nprobe = re.match(r"ivf\+refine nprobe=(\d+)", label)
+        floor = MIN_RECALL.get(int(nprobe[1]), MIN_RECALL_WIDE) if nprobe else MIN_RECALL_WIDE
+        if r["recall"] < floor or not r["qps"] > 0:
+            failures.append(f"{label}: recall@10 {r['recall']:.4f} (floor {floor}), "
+                            f"{r['qps']:.0f} QPS")
+    for line in err.splitlines():
+        if "bench: " in line and "bench: phase=" not in line:
+            log(f"  {line.strip()}")
+    log(f"bench: {len(rows)} rows of {len(expected)} planned, headline {metric!r} "
+        f"value {head.get('value')}, launches {out['subprocess_launches']}, "
+        f"{out['secs']:.1f} s in all ({smi})")
+    return {"rows": rows, "headline": head, "secs": out["secs"], "failures": failures,
+            "subprocess_launches": out["subprocess_launches"]}
+
+
+def phase_benchbuild(smi, n=BENCHBUILD_N) -> dict:
+    """`python -m vectorsearch_tpu_torch.bench_build` in a subprocess with
+    VSTPU_BUILD_N=n (BENCHBUILD_N: cut from 10M, see there) and its other
+    defaults (D=768, K=4096): exit 0, its JSON line (seconds), its
+    max/mean cluster line over n rows with 1 < K <= 2 x 4096, and its
+    launch line (both k-means kernels)."""
+    from vectorsearch_tpu_torch import bench_build
+
+    out = harness_run("vectorsearch_tpu_torch.bench_build", {"VSTPU_BUILD_N": str(n)})
+    err, failures = out["stderr"], []
+    if out["rc"] != 0:
+        failures.append(f"exit {out['rc']}; its log ends:\n{err[-3000:]}")
+    line = last_json(out["stdout"])
+    if set(line) != {"metric", "value", "unit"} or line["unit"] != "s" or not line["value"] > 0:
+        failures.append(f"the JSON line: {line or out['stdout'][-500:]!r}")
+    m = BUILD_LINE.search(err)
+    built = {} if m is None else {
+        "k": int(m[1]), "n": int(m[2]), "build_s": float(m[3]), "max_cluster": int(m[4]),
+        "mean_cluster": int(m[5])}
+    if not (built and built["n"] == n and 1 < built["k"] <= 2 * bench_build.K
+            and built["max_cluster"] >= built["mean_cluster"] > 0):
+        failures.append(f"the build's line: {built or err[-2000:]}")
+    for ln in err.splitlines():
+        if "build-bench: " in ln:
+            log(f"  {ln.strip()}")
+    log(f"benchbuild: {line.get('metric')}: {line.get('value')} s, launches "
+        f"{out['subprocess_launches']}, {out['secs']:.1f} s in all ({smi})")
+    return {"line": line, "build": built, "secs": out["secs"], "failures": failures,
+            "subprocess_launches": out["subprocess_launches"]}
+
+
 def phase_engine(torch, dev, n_docs=2_000) -> dict:
     """Engine over a temporary SQLite store and snapshot dir."""
     from vectorsearch_tpu_torch.engine import Engine
@@ -2311,7 +2504,7 @@ def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     build_centroids with bench_build.py's arguments. The rows are returned
     under "rows", the build under "result", for profile_build and the 10M
     serving and engine phases."""
-    from vectorsearch_tpu_torch.build import build_centroids
+    from vectorsearch_tpu_torch import bench_build
     from vectorsearch_tpu_torch.tools.scale_corpus import packed_host
 
     t0 = time.perf_counter()
@@ -2320,10 +2513,7 @@ def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    result = build_centroids(
-        host, k=k, min_cluster_size=max(1, (n // k) // 10), max_iters=8,
-        superset_iters=3, chunk=65_536, balance_rounds=1, device=dev,
-    )
+    result = bench_build.build(host, dev, k=k)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -2352,16 +2542,12 @@ def profile_build(torch, host, dev, k=BUILD_K, top=10) -> dict:
     build)."""
     from torch.autograd import DeviceType
 
-    from vectorsearch_tpu_torch.build import build_centroids
+    from vectorsearch_tpu_torch import bench_build
 
-    n = host.codes.shape[0]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        build_centroids(
-            host, k=k, min_cluster_size=max(1, (n // k) // 10), max_iters=8,
-            superset_iters=3, chunk=65_536, balance_rounds=1, device=dev,
-        )
+        bench_build.build(host, dev, k=k)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     sums = {}
@@ -2542,6 +2728,8 @@ def main() -> int:
                            "kmeans_accumulate": km.ACCUMULATE_LAUNCHES,
                            "flat_bands_s8": tf.S8_LAUNCHES,
                            "flat_bands_bf16": tf.BF16_LAUNCHES}
+        # a phase that runs the path in a subprocess: that process's counts
+        launches[phase].update(out.pop("subprocess_launches", {}))
         log(f"launches in the {phase} phase: {launches[phase]}")
         return out
 
@@ -2560,6 +2748,9 @@ def main() -> int:
     flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
     sharded_inputs = idx.pop("sharded_inputs")
     shd = run("sharded", lambda: phase_sharded(torch, dev, smi, *sharded_inputs))
+    # tools/batch_sweep.py on phase 4's rows, queries, truth and index
+    bsw = run("batchsweep", lambda: phase_batchsweep(
+        torch, dev, smi, *[sharded_inputs[i] for i in (0, 4, 5, 6)]))
     # the scan held against plain on one shard's store of the sharded path
     entries[0]["sharded_shard_checks"] = shd["scan_checks"]
     entries[0]["max_abs_err"] = max([entries[0]["max_abs_err"],
@@ -2574,6 +2765,8 @@ def main() -> int:
     hst = run("hostpath", lambda: phase_hostpath(torch, dev, smi, *hostpath_inputs))
     del hostpath_inputs
     torch.cuda.empty_cache()
+    bch = run("bench", lambda: phase_bench(smi))
+    bbd = run("benchbuild", lambda: phase_benchbuild(smi))
     eng = run("engine", lambda: phase_engine(torch, dev))
     srv = run("server", lambda: phase_server(torch, dev, smi))
     torch.cuda.empty_cache()
@@ -2607,6 +2800,9 @@ def main() -> int:
     failures += [f"sharded phase: {f}" for f in shd["failures"]]
     failures += [f"graft phase: {f}" for f in grf["failures"]]
     failures += [f"hostpath phase: {f}" for f in hst["failures"]]
+    failures += [f"batchsweep phase: {f}" for f in bsw["failures"]]
+    failures += [f"bench phase: {f}" for f in bch["failures"]]
+    failures += [f"benchbuild phase: {f}" for f in bbd["failures"]]
     # the scan once a shard of every search on the card's shards
     if launches["sharded"]["grouped_scores"] < SHARDED_SHARDS * shd["virtual_searches"]:
         failures.append(f"sharded phase: {launches['sharded']['grouped_scores']} scan "

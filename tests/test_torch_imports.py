@@ -29,6 +29,8 @@ assert not bad, bad
 jax_pkg = sorted(m for m in sys.modules
                  if m == "vectorsearch_tpu" or m.startswith("vectorsearch_tpu."))
 assert not jax_pkg, jax_pkg
+# nor the root bench.py / bench_build.py
+assert not {"bench", "bench_build"} & set(sys.modules), sys.modules.keys()
 print(len(names))
 print(" ".join(names))
 """
@@ -43,12 +45,14 @@ print(" ".join(names))
     # parallel/ (4), the port's own copies of the host modules (config,
     # constants, logger, utils.errors, quant/ (3), native, store/ (6),
     # embed/ (7)), the graft entry points (graft_entry), the client SDK
-    # (client), the scale checks, the host-path tools and their HTTP driver
-    # (tools/, 7) and the quickstart (examples/, 2)
-    assert int(count) >= 64
+    # (client), the scale checks, the host-path tools, their HTTP driver and
+    # the batch sweep (tools/, 8), the quickstart (examples/, 2) and the
+    # bench harness (bench, bench_build)
+    assert int(count) >= 67
     for name in ("tools", "tools.scale_corpus", "tools.bench_10m_serving",
                  "tools.engine_10m_check", "tools.http_driver", "tools.host_profile",
-                 "tools.bench_http_concurrent", "examples", "examples.quickstart"):
+                 "tools.bench_http_concurrent", "tools.batch_sweep", "examples",
+                 "examples.quickstart", "bench", "bench_build"):
         assert f"vectorsearch_tpu_torch.{name}" in names.split()
 
 

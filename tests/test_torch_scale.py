@@ -14,6 +14,7 @@ import torch
 
 from vectorsearch_tpu.engine import Engine as JaxEngine
 from vectorsearch_tpu.store import Store as JaxStore
+from vectorsearch_tpu_torch.bench_build import build
 from vectorsearch_tpu_torch.device import upload_packed
 from vectorsearch_tpu_torch.engine import Engine
 from vectorsearch_tpu_torch.quant import layout
@@ -35,7 +36,7 @@ def corpus():
     packed = sc.packed_host(CPU, N, sc.DIM, K, seed=0)
     queries = sc.make_queries(packed)
     truth = sc.exact_truth(queries, CPU, N, sc.DIM, K, seed=0)
-    return packed, queries, truth, bs.build(packed, K, CPU)
+    return packed, queries, truth, build(packed, CPU, k=K)
 
 
 @pytest.fixture

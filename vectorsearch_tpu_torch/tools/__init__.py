@@ -15,6 +15,9 @@ tools/):
   http_driver         the HTTP helpers those checks and chip_smoke.py drive
                       the entry with (a free port, a client, a fan-out, the
                       entry or one engine's router served from a thread)
+  batch_sweep         QPS of the IVF search over batch sizes on distinct
+                      queries at nprobe 1 and 2, on the bench harness's
+                      setup and build (vectorsearch_tpu_torch.bench)
 
 Each check runs alone with `python -m vectorsearch_tpu_torch.tools.<name>` and
 exposes the functions chip_smoke.py calls with the rows it already holds.
