@@ -1,6 +1,5 @@
 """The port's profiling utilities (vectorsearch_tpu_torch/utils)."""
 import json
-import logging
 
 import pytest
 import torch
@@ -30,20 +29,6 @@ def test_device_memory_stats_per_card(monkeypatch):
     assert got[1] == {"device": "cuda:1", "name": "card1", "bytes_in_use": 5,
                       "peak_bytes_in_use": 7, "bytes_reserved": 8,
                       "bytes_free": 11, "bytes_limit": 80}
-
-
-def test_timed_logs_the_block(caplog):
-    from vectorsearch_tpu_torch.logger import sugar
-
-    logger = sugar()
-    logger.propagate = True
-    try:
-        with caplog.at_level(logging.INFO, logger="vectorsearch"):
-            with utils.timed("unit step"):
-                pass
-    finally:
-        logger.propagate = False
-    assert any("unit step took" in r.getMessage() for r in caplog.records)
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

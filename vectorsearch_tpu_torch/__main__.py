@@ -24,10 +24,18 @@ install a sharded read replica that searches use until the next write.
 Sharded serving over several processes is refused (exit 2): each process
 answers its own HTTP requests, while every sharded search and rebuild is
 a collective that all ranks must enter in the same order.
+
+With VSTPU_TRACE_DIR=<dir> the entry serves inside a torch profiler
+(utils/profiling.device_trace): the program's spans and counters record,
+/api/stats shows them under "trace", and a Chrome trace of the whole
+session (host ops and spans of every thread, the card's kernels) is
+written into <dir> at shutdown. The trace grows with the session: this
+is for a bounded debugging session.
 """
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import os
 import signal
 import sys
@@ -48,11 +56,13 @@ from .logger import configure, sugar
 from .parallel.distributed import global_mesh, maybe_initialize
 from .quant import codec, layout
 from .store import Store
+from .utils import device_trace
 
 NO_CARD = (
     "no CUDA card ({asked}): vectorsearch_tpu_torch serves on an NVIDIA GPU; "
     "set VSTPU_DEVICE=cpu to serve on the CPU"
 )
+TRACE_ENV = "VSTPU_TRACE_DIR"
 MESH_ACROSS_PROCESSES = (
     "mesh.shard_serving with mesh.num_processes {n} is not supported: each "
     "process answers its own requests, and a sharded search is a collective "
@@ -283,7 +293,9 @@ def run(cfg: config_mod.Config, ai=None, stop: threading.Event | None = None) ->
         for worker in workers:
             worker.start()
 
-        asyncio.run(serve(cfg, engine, stop))
+        trace_dir = os.environ.get(TRACE_ENV)
+        with device_trace(trace_dir) if trace_dir else contextlib.nullcontext():
+            asyncio.run(serve(cfg, engine, stop))
     finally:
         stopping.set()
         # the workers run torch ops; an interpreter that exits under one

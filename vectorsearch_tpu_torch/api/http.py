@@ -28,10 +28,12 @@ a client that is still sending the body reads the answer.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import http
 import json
 import os
 import threading
+import time
 from urllib.parse import unquote
 
 from .. import constants
@@ -39,7 +41,7 @@ from ..engine.engine import RequestCanceled
 from ..logger import next_txid, sugar
 from ..store.db import HAVE_ZSTD
 from ..store.db import compress as zstd_compress
-from ..utils import device_memory_stats
+from ..utils import device_memory_stats, profiling
 
 STATIC_DIR = os.path.join(os.path.dirname(__file__), "static")
 
@@ -308,7 +310,17 @@ def build_app(engine):
 
     def handler(methods, fn, compressible=False):
         async def wrapped(request: Request) -> Response:
+            # the span `http.request`; its spans and the engine's carry the
+            # txid (utils/profiling.py)
             txid = next_txid()
+            token = profiling.TXID.set(txid)
+            try:
+                with profiling.span("http.request"):
+                    return await respond(request, txid)
+            finally:
+                profiling.TXID.reset(token)
+
+        async def respond(request: Request, txid: int) -> Response:
             if request.method not in methods:
                 # RFC 9110 §15.5.6: Allow lists every supported method
                 return _json_error(
@@ -323,8 +335,15 @@ def build_app(engine):
             # this coroutine; the engine call keeps running on its executor
             # thread, so the cancel event tells it to abort between stages
             cancel = threading.Event()
+            t_submit = time.perf_counter()
+
+            def call():
+                # the counter `http.queue_s`: the wait for an executor thread
+                profiling.count("http.queue_s", time.perf_counter() - t_submit)
+                return fn(req, cancel)
+
             fut = asyncio.get_running_loop().run_in_executor(
-                None, fn, req, cancel
+                None, contextvars.copy_context().run, call
             )
             try:
                 result = await fut
@@ -496,6 +515,8 @@ def build_app(engine):
             data["devices"] = device_memory_stats()
         except Exception as e:
             sugar().warning("device memory stats failed: %s", e)
+        if profiling.recording():  # the spans and counters (VSTPU_TRACE_DIR)
+            data["trace"] = profiling.snapshot()
         return Response(200, json.dumps(data).encode(),
                         "application/json; charset=utf-8")
 

@@ -33,7 +33,6 @@ their plain versions.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,6 +45,7 @@ from ..logger import sugar
 from ..parallel.distributed import gather_shards, put_sharded_rows, sum_shards
 from ..parallel.mesh import Mesh
 from ..quant.layout import PackedVectors
+from ..utils.profiling import append, count, span, traced
 from .progress import tracker as _progress
 
 
@@ -89,6 +89,8 @@ def _assign_and_accumulate(shards: list, chunk: int, centroids, mesh: Mesh | Non
     parts = []
     for rows in shards:
         if rows.n:
+            append("kmeans.pass_shapes", (int(rows.codes.shape[0]), int(centroids.shape[0]),
+                                          int(rows.codes.shape[1])))
             parts.append(kmeans_kernels.assign_accumulate(
                 rows, centroids.to(rows.codes.device), chunk
             ))
@@ -145,18 +147,27 @@ def lloyd(
     prev = [torch.full((r.n,), -1, dtype=torch.int32, device=r.codes.device) for r in shards]
     it, changes = 0, 2**31 - 1
     while it < max_iters and changes > tol_changes:
-        sums, counts, cids = _assign_and_accumulate(shards, chunk, cents, mesh)
-        cents = torch.where(
-            counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], cents
-        )
-        moved = [(c != p).sum() for c, p in zip(cids, prev)]
-        changes = int(moved[0] if mesh is None else sum_shards(mesh, moved))
+        with span("kmeans.pass"):
+            count("kmeans.passes")
+            sums, counts, cids = _assign_and_accumulate(shards, chunk, cents, mesh)
+            cents = torch.where(
+                counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], cents
+            )
+            moved = [(c != p).sum() for c, p in zip(cids, prev)]
+            with span("kmeans.sync"):
+                changes = int(moved[0] if mesh is None else sum_shards(mesh, moved))
         prev = cids
         it += 1
+    with span("kmeans.sync"):
+        centroids = to_host(cents)
+    with span("kmeans.sync"):
+        assignments = _gather_assignments(mesh, prev, n)
+    with span("kmeans.sync"):
+        counts = to_host(counts).astype(np.int64)
     return KMeansResult(
-        centroids=to_host(cents),
-        assignments=_gather_assignments(mesh, prev, n),
-        counts=to_host(counts).astype(np.int64),
+        centroids=centroids,
+        assignments=assignments,
+        counts=counts,
         iterations=it,
         final_changes=changes if it else -1,
     )
@@ -164,17 +175,19 @@ def lloyd(
 
 def sample_init(packed: PackedVectors, k: int, seed: int = 0) -> np.ndarray:
     """Initial centroids = dequantized random distinct data rows."""
-    n = np.shape(packed.codes)[0]
-    rng = np.random.default_rng(seed)
-    pick = rng.choice(n, size=min(k, n), replace=False)
-    codes = to_host(packed.codes)[pick].astype(np.float32)
-    scale = to_host(packed.scale)[pick]
-    offset = to_host(packed.offset)[pick]
-    return offset[:, None] + scale[:, None] * codes
+    with span("build.gather"):
+        n = np.shape(packed.codes)[0]
+        rng = np.random.default_rng(seed)
+        pick = rng.choice(n, size=min(k, n), replace=False)
+        codes = to_host(packed.codes)[pick].astype(np.float32)
+        scale = to_host(packed.scale)[pick]
+        offset = to_host(packed.offset)[pick]
+        return offset[:, None] + scale[:, None] * codes
 
 
 def _take(packed: PackedVectors, rows: np.ndarray) -> PackedVectors:
-    return PackedVectors(*[to_host(a)[rows] for a in packed])
+    with span("build.gather"):
+        return PackedVectors(*[to_host(a)[rows] for a in packed])
 
 
 def kmeans(
@@ -210,24 +223,24 @@ def kmeans(
     half = _pow2_class(k_super) // 2
     if k < half < k_super:  # shrink only — never inflate a small superset
         k_super = half
-    t0 = time.perf_counter()
     init = sample_init(packed, k_super, seed=seed)
     if k_super > k:
         # the superset phase runs on a SAMPLE (the reference k-means's
         # 50k sample, dnc/dnc.go:320-324)
         sample_n = min(n, max(constants.SAMPLE_SIZE, 12 * k_super))
         if sample_n < n:
-            rng = np.random.default_rng(seed + 1)
-            pick = np.sort(rng.choice(n, size=sample_n, replace=False))
+            with span("build.gather"):
+                rng = np.random.default_rng(seed + 1)
+                pick = np.sort(rng.choice(n, size=sample_n, replace=False))
             with _progress.phase(
                 "superset", f"{k_super} seeds / {sample_n}-row sample"
-            ):
+            ) as ph:
                 phase1 = lloyd(
                     _take(packed, pick), init, max_iters=superset_iters,
                     chunk=min(chunk, 8_192), device=device, mesh=mesh,
                 )
         else:
-            with _progress.phase("superset", f"{k_super} seeds / full corpus"):
+            with _progress.phase("superset", f"{k_super} seeds / full corpus") as ph:
                 phase1 = lloyd(
                     packed, init, max_iters=superset_iters, prepared=prepared,
                     mesh=mesh,
@@ -236,12 +249,16 @@ def kmeans(
         init = phase1.centroids[top]
         sugar().info(
             "build: superset %d seeds / %d-row sample: %.1fs",
-            k_super, min(sample_n, n), time.perf_counter() - t0,
+            k_super, min(sample_n, n), ph.seconds,
         )
-    with _progress.phase("lloyd", f"k={k}, n={n}"):
-        return lloyd(packed, init, max_iters=max_iters, prepared=prepared, mesh=mesh)
+    with _progress.phase("lloyd", f"k={k}, n={n}") as ph:
+        result = lloyd(packed, init, max_iters=max_iters, prepared=prepared, mesh=mesh)
+    if k_super > k:  # a top-level build (a balance round's sub-builds log nothing)
+        sugar().info("build: lloyd %d iters: %.1fs", result.iterations, ph.seconds)
+    return result
 
 
+@traced("build")
 def build_centroids(
     packed: PackedVectors,
     target_cluster_size: int = constants.CENTROID_SIZE,
@@ -262,25 +279,19 @@ def build_centroids(
     With `mesh` the superset, main, drop-small and balance passes run on
     its shards; a balance round's sub-splits (a sample of one cluster's
     members) run on its first device, as the JAX module runs them off the
-    mesh."""
+    mesh. The whole build is the span `build`."""
     n = np.shape(packed.codes)[0]
     if k is None:
         k = max(1, -(-n // target_cluster_size))
     if min_cluster_size is None:
         min_cluster_size = max(1, target_cluster_size // 10)
 
-    t0 = time.perf_counter()
-    with _progress.phase("upload", f"{n} rows -> device"):
+    with _progress.phase("upload", f"{n} rows -> device") as ph:
         prepared = prepare_tiles(packed, chunk, device, mesh)
-    t_prep = time.perf_counter()
+    sugar().info("build: prepare(upload) %.1fs", ph.seconds)
     result = kmeans(
         packed, k, max_iters=max_iters, chunk=chunk, seed=seed,
         superset_iters=superset_iters, prepared=prepared, mesh=mesh,
-    )
-    t_kmeans = time.perf_counter()
-    sugar().info(
-        "build: prepare(upload) %.1fs, kmeans(superset+%d iters) %.1fs",
-        t_prep - t0, result.iterations, t_kmeans - t_prep,
     )
     # the MAIN Lloyd's convergence stats: later passes run 1-2 bounded
     # iterations from prev=-1, so theirs are no convergence diagnostic
@@ -292,7 +303,7 @@ def build_centroids(
     if small.any() and (~small).any():
         with _progress.phase(
             "drop-small", f"{int(small.sum())} clusters below minimum"
-        ):
+        ) as ph:
             # one Lloyd's iteration against survivors = reassign+recenter,
             # then recenter once more for the new assignment
             result = lloyd(
@@ -304,33 +315,32 @@ def build_centroids(
                 prepared=prepared, mesh=mesh,
             )
         sugar().info(
-            "build: drop-small (%d dropped) %.1fs",
-            int(small.sum()), time.perf_counter() - t_kmeans,
+            "build: drop-small (%d dropped) %.1fs", int(small.sum()), ph.seconds
         )
 
     # balance: split clusters larger than 2x the mean by a local k-means
     # on their members — one level of the reference's divide step
     # (dnc/dnc.go:320-335). Skew sets the uniform bucket capacity.
     for round_i in range(balance_rounds):
-        t_round = time.perf_counter()
         mean_count = max(1, int(result.counts.sum() // max(1, len(result.counts))))
         oversized = np.nonzero(result.counts > 2 * mean_count)[0]
         if oversized.size == 0:
             break
         with _progress.phase(
             "balance", f"round {round_i + 1}: {oversized.size} splits"
-        ):
+        ) as ph:
             split = set(oversized.tolist())
             new_centroids = [
                 result.centroids[i] for i in range(len(result.counts))
                 if i not in split
             ]
             for ci in oversized:
-                members = np.nonzero(result.assignments == ci)[0]
-                if members.size > constants.SAMPLE_SIZE:
-                    members = np.random.default_rng(seed + int(ci)).choice(
-                        members, size=constants.SAMPLE_SIZE, replace=False
-                    )
+                with span("balance.members"):
+                    members = np.nonzero(result.assignments == ci)[0]
+                    if members.size > constants.SAMPLE_SIZE:
+                        members = np.random.default_rng(seed + int(ci)).choice(
+                            members, size=constants.SAMPLE_SIZE, replace=False
+                        )
                 k_sub = max(2, -(-int(result.counts[ci]) // mean_count))
                 sub_res = kmeans(
                     _take(packed, members), k_sub, max_iters=10,
@@ -338,15 +348,13 @@ def build_centroids(
                     device=_staged_device(prepared),
                 )
                 new_centroids.extend(list(sub_res.centroids))
-            t_subs = time.perf_counter()
             result = lloyd(
                 packed, np.stack(new_centroids), max_iters=2,
                 tol_changes=-1, prepared=prepared, mesh=mesh,
             )
-            sugar().info(
-                "build: balance round (%d split, subs %.1fs, reassign %.1fs)",
-                oversized.size, t_subs - t_round, time.perf_counter() - t_subs,
-            )
+        sugar().info(
+            "build: balance round (%d split) %.1fs", oversized.size, ph.seconds
+        )
     return dataclasses.replace(
         result, iterations=main_iters, final_changes=main_churn
     )

@@ -14,7 +14,10 @@ HOST-side and phase-grained:
   * a daemon watcher logs a heartbeat while any phase runs longer than
     LOG_EVERY_S — a 500 s 10M rebuild is no longer silent mid-phase;
   * Engine.stats() exposes the live snapshot under "build" so
-    /api/stats shows phase, elapsed, and ETA while a rebuild runs.
+    /api/stats shows phase, elapsed, and ETA while a rebuild runs;
+  * each phase, nested ones included, is the span `build.<phase>`
+    (utils/profiling.py) and keeps its own duration (`seconds`), which
+    build/kmeans.py logs.
 
 One build runs at a time per process (store build_locks serialize
 cross-process; Engine.refresh_category's per-category lock serializes
@@ -27,6 +30,8 @@ from __future__ import annotations
 import math
 import threading
 import time
+
+from ..utils.profiling import span
 
 LOG_EVERY_S = 15.0
 _EWMA_ALPHA = 0.5
@@ -76,7 +81,7 @@ class BuildProgress:
     def phase(self, name: str, detail: str = ""):
         return _Phase(self, name, detail)
 
-    def _phase_start(self, name: str, detail: str) -> bool:
+    def _phase_start(self, name: str, detail: str, t0: float) -> bool:
         """Returns False (no-op) when a phase is already open: the
         balance pass runs nested kmeans() sub-splits whose inner
         superset/lloyd phases would otherwise clobber the outer phase
@@ -91,15 +96,14 @@ class BuildProgress:
                 self.build_t0 = time.monotonic()
             self.phase_name = name
             self.phase_detail = detail
-            self.phase_t0 = time.monotonic()
+            self.phase_t0 = t0
         self._ensure_watcher()
         return True
 
-    def _phase_end(self, name: str) -> None:
+    def _phase_end(self, name: str, dur: float) -> None:
         with self._lock:
             if self.phase_name != name:
                 return
-            dur = time.monotonic() - self.phase_t0
             key = (name, _scale_bucket(self.n_rows))
             prev = self._ewma.get(key)
             self._ewma[key] = (
@@ -181,17 +185,26 @@ class BuildProgress:
 
 
 class _Phase:
+    """One phase: the span `build.<name>`, its own duration (`seconds`,
+    set on exit), and the tracker's phase where no other phase is open."""
+
     def __init__(self, tracker: BuildProgress, name: str, detail: str):
         self._t, self._name, self._detail = tracker, name, detail
         self._owns = False
+        self._span = span("build." + name)
+        self.seconds = 0.0
 
     def __enter__(self):
-        self._owns = self._t._phase_start(self._name, self._detail)
+        self._span.__enter__()
+        self._t0 = time.monotonic()
+        self._owns = self._t._phase_start(self._name, self._detail, self._t0)
         return self
 
     def __exit__(self, *exc):
+        self.seconds = time.monotonic() - self._t0
         if self._owns:
-            self._t._phase_end(self._name)
+            self._t._phase_end(self._name, self.seconds)
+        self._span.__exit__(*exc)
         return False
 
 

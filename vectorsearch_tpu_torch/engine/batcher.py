@@ -36,6 +36,7 @@ import numpy as np
 
 from .. import constants
 from ..utils.errors import fresh_exc
+from ..utils.profiling import span
 
 
 # Batch size classes: each class is one compiled program per (snapshot
@@ -104,7 +105,8 @@ class QueryBatcher:
                 leader = True
 
         if leader:
-            self._device.acquire()
+            with span("batcher.wait"):
+                self._device.acquire()
             # yield the interpreter once before the batch closes, so that
             # callers already on their way join it: a dispatch that keeps
             # the interpreter (torch ops on small CPU tensors release it
@@ -124,7 +126,8 @@ class QueryBatcher:
                         [q, np.broadcast_to(q[:1], (m_pad - m,) + q.shape[1:])]
                     )
                 try:
-                    scores, ids = run_fn(q)
+                    with span("batcher.dispatch"):
+                        scores, ids = run_fn(q)
                     batch.result = (np.asarray(scores), np.asarray(ids))
                 except BaseException as e:  # propagate to every waiter
                     batch.error = e
@@ -135,7 +138,8 @@ class QueryBatcher:
                 self._device.release()
                 batch.done.set()
         else:
-            batch.done.wait()
+            with span("batcher.wait"):
+                batch.done.wait()
 
         if batch.error is not None:
             # per-waiter copy: many coalesced threads re-raising one
@@ -164,9 +168,11 @@ class QueryBatcher:
                 q = np.concatenate(
                     [q, np.broadcast_to(q[:1], (m_pad - m,) + q.shape[1:])]
                 )
-            self._device.acquire()
+            with span("batcher.wait"):
+                self._device.acquire()
             try:
-                scores, ids = run_fn(q)
+                with span("batcher.dispatch"):
+                    scores, ids = run_fn(q)
             finally:
                 self._device.release()
             with self._lock:

@@ -39,6 +39,7 @@ from ..parallel import ShardedIVF
 from ..quant import codec, layout
 from ..quant.layout import PackedVectors
 from ..store import Store, snapshots
+from ..utils.profiling import span, traced
 from .batcher import QueryBatcher
 from .cache import EngineCache
 from .docmap import DocMap
@@ -580,6 +581,7 @@ class Engine:
 
     # ----------------------------------------------------------------- upload
 
+    @traced("engine.upload")
     def upload(
         self,
         owner_name: str,
@@ -610,11 +612,12 @@ class Engine:
             inputs.extend(sections)
 
         # 2. embed (wire rows come back quantized)
-        wires = self.ai.embed(inputs, self.ai.embed_model())
-        if len(wires) != len(inputs):
-            raise RuntimeError("invalid response embeddings count")
-        wire_mat = np.stack([np.asarray(w, np.uint8) for w in wires])
-        packed = layout.pack_wire(wire_mat)
+        with span("engine.embed"):
+            wires = self.ai.embed(inputs, self.ai.embed_model())
+            if len(wires) != len(inputs):
+                raise RuntimeError("invalid response embeddings count")
+            wire_mat = np.stack([np.asarray(w, np.uint8) for w in wires])
+            packed = layout.pack_wire(wire_mat)
         _check_cancel(cancel)  # last abort point before the coalesced batch
 
         # 3. owner / category (create on miss, via cache singleflight)
@@ -798,9 +801,10 @@ class Engine:
                         ]
                     )
                     cursor += n_sections
-                doc_ids, emb_ids = self.store.insert_documents_with_embeddings(
-                    category_id, doc_rows, embeddings_per_doc
-                )
+                with span("engine.sql_insert"):
+                    doc_ids, emb_ids = self.store.insert_documents_with_embeddings(
+                        category_id, doc_rows, embeddings_per_doc
+                    )
             except BaseException as e:
                 j.error = e
                 offset += m
@@ -829,7 +833,8 @@ class Engine:
             ins_emb = np.concatenate(
                 [np.asarray(e, np.int64) for _, e, _, _ in surviving]
             )
-        state.ivf = state.ivf.insert(ins_packed, ins_emb, cids=ins_cids)
+        with span("upload.index_insert"):
+            state.ivf = state.ivf.insert(ins_packed, ins_emb, cids=ins_cids)
         state.sharded = None  # the replica is stale until the next rebuild
         state.dirty = True
         for j, emb_ids, _, _ in surviving:
@@ -1052,6 +1057,7 @@ class Engine:
             _check_cancel(cancel)
         return hits[offset : offset + count]
 
+    @traced("engine.search")
     def search(
         self,
         owner_name: str,
@@ -1090,8 +1096,9 @@ class Engine:
         _check_cancel(cancel)
 
         # embed query with the search_query prefix (server/search.go:127-139)
-        wire = self.ai.embed([f"search_query: {text}"], self.ai.embed_model())[0]
-        query = codec.dequantize(np.asarray(wire, np.uint8)[None])
+        with span("engine.embed"):
+            wire = self.ai.embed([f"search_query: {text}"], self.ai.embed_model())[0]
+            query = codec.dequantize(np.asarray(wire, np.uint8)[None])
         _check_cancel(cancel)
 
         hits = self._window_hits(
@@ -1101,7 +1108,8 @@ class Engine:
             return []
         _check_cancel(cancel)
 
-        docs = {d.id: d for d in self.store.fetch_documents([h[0] for h in hits])}
+        with span("engine.sql_fetch"):
+            docs = {d.id: d for d in self.store.fetch_documents([h[0] for h in hits])}
         out = []
         for doc_id, score in hits:
             d = docs.get(doc_id)
@@ -1119,6 +1127,7 @@ class Engine:
         sugar().info("%d search: %d hits", txid, len(out))
         return out
 
+    @traced("engine.search_many")
     def search_many(
         self,
         owner_name: str,
@@ -1172,10 +1181,11 @@ class Engine:
         ivf = state.ivf
         _check_cancel(cancel)
 
-        wires = self.ai.embed(
-            [f"search_query: {t}" for t in texts], self.ai.embed_model()
-        )
-        queries = codec.dequantize(np.asarray(wires, np.uint8))
+        with span("engine.embed"):
+            wires = self.ai.embed(
+                [f"search_query: {t}" for t in texts], self.ai.embed_model()
+            )
+            queries = codec.dequantize(np.asarray(wires, np.uint8))
         _check_cancel(cancel)
 
         want = count + offset
@@ -1228,9 +1238,10 @@ class Engine:
             })
             # chunk the IN(...) list to stay clear of SQLite's bound-
             # variable limit (999 in older builds)
-            for s in range(0, len(uniq), 900):
-                for d in self.store.fetch_documents(uniq[s : s + 900]):
-                    docs[d.id] = d
+            with span("engine.sql_fetch"):
+                for s in range(0, len(uniq), 900):
+                    for d in self.store.fetch_documents(uniq[s : s + 900]):
+                        docs[d.id] = d
         _check_cancel(cancel)
 
         out: list[list[SearchHit]] = []

@@ -35,6 +35,7 @@ from .. import constants
 from ..device import check_exact_f32, resolve, to_device, to_host, upload_packed
 from ..kernels import cosine, grouped_scan
 from ..quant.layout import PackedVectors
+from ..utils.profiling import count, span, traced
 from .flat import FlatIndex
 
 
@@ -105,7 +106,8 @@ def _scan_refined(
         queries, centroids_n, buckets, counts, bucket_mask,
         nprobe=nprobe, k=k_coarse, epilogue=epilogue, folded=folded,
     )
-    return cosine.rescore_topk(queries, _flat_view(buckets), scores, gslot, k)
+    with span("scan.refine"):
+        return cosine.rescore_topk(queries, _flat_view(buckets), scores, gslot, k)
 
 
 def _oom_fallback(pallas_refined, nprobe, cap, cur_epi, cur_apx, b_max):
@@ -327,12 +329,21 @@ class IVFIndex:
 
     # ---- queries ----
 
+    @traced("ivf.search")
     def search(self, queries, k: int, nprobe: int = 1, refine: int = 0):
         """Top-k over probed clusters + spill. Returns numpy (scores, ids)
         like FlatIndex.search. nprobe<0 means probe everything
         (reference: server/search.go:118-122). refine=m>0 re-ranks the
-        coarse top-m candidates with the exact f32 query."""
-        queries = torch.atleast_2d(to_device(queries, self.device, torch.float32))
+        coarse top-m candidates with the exact f32 query.
+
+        Spans (utils/profiling.py): `ivf.search` around the call, with the
+        children `ivf.upload`, `ivf.dispatch` (the scan's stages `scan.*`
+        inside), `ivf.id_map`, `ivf.spill` and `ivf.sync` at each point
+        where the host waits on the card; the counters `ivf.calls` and
+        `ivf.syncs`."""
+        count("ivf.calls")
+        with span("ivf.upload"), grouped_scan.host_waits():
+            queries = torch.atleast_2d(to_device(queries, self.device, torch.float32))
         if nprobe < 0:
             nprobe = self.k_clusters
         nprobe = max(1, min(nprobe, self.k_clusters))
@@ -377,13 +388,17 @@ class IVFIndex:
             )
 
         def dispatch(bm, epi):
-            parts = [
-                one(queries[i : i + bm], epi)
-                for i in range(0, queries.shape[0], bm)
-            ]
-            s = torch.cat([p[0] for p in parts], dim=0)
-            g = torch.cat([p[1] for p in parts], dim=0)
-            return to_host(s), to_host(g)
+            with span("ivf.dispatch"):
+                parts = [
+                    one(queries[i : i + bm], epi)
+                    for i in range(0, queries.shape[0], bm)
+                ]
+                s = torch.cat([p[0] for p in parts], dim=0)
+                g = torch.cat([p[1] for p in parts], dim=0)
+            with grouped_scan.host_waits():
+                s = to_host(s)
+            with grouped_scan.host_waits():
+                return s, to_host(g)
 
         # On an out-of-memory dispatch: if the auto policy resolved to
         # blockexact, first downgrade to flat at the SAME batch (its extra
@@ -420,17 +435,19 @@ class IVFIndex:
                 retried = True
         if retried:
             self._oom_memo[nprobe] = (cur_epi, b_max)
-        flat_ids = self.ids.reshape(-1)
-        safe = np.clip(gslot, 0, flat_ids.size - 1)
-        out_ids = np.where(np.isneginf(scores), -1, flat_ids[safe])
+        with span("ivf.id_map"):
+            flat_ids = self.ids.reshape(-1)
+            safe = np.clip(gslot, 0, flat_ids.size - 1)
+            out_ids = np.where(np.isneginf(scores), -1, flat_ids[safe])
 
         if self.spill.live > 0:
-            s2, i2 = self.spill.search(queries, k, refine=refine)
-            both_s = np.concatenate([scores, s2], axis=-1)
-            both_i = np.concatenate([out_ids, i2], axis=-1)
-            take = np.argsort(-both_s, axis=-1, kind="stable")[:, :k]
-            scores = np.take_along_axis(both_s, take, axis=-1)
-            out_ids = np.take_along_axis(both_i, take, axis=-1)
+            with span("ivf.spill"):
+                s2, i2 = self.spill.search(queries, k, refine=refine)
+                both_s = np.concatenate([scores, s2], axis=-1)
+                both_i = np.concatenate([out_ids, i2], axis=-1)
+                take = np.argsort(-both_s, axis=-1, kind="stable")[:, :k]
+                scores = np.take_along_axis(both_s, take, axis=-1)
+                out_ids = np.take_along_axis(both_i, take, axis=-1)
         return scores, out_ids
 
     def probe(self, queries, nprobe: int):

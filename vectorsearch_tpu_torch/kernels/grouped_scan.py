@@ -29,6 +29,7 @@ import torch
 
 from ..device import check_exact_f32
 from ..quant.layout import PackedVectors
+from ..utils.profiling import count, span
 from . import _build, cosine
 
 # kernel launches since import (or since a caller reset it to 0): lets a
@@ -187,6 +188,14 @@ def grouped_scores(
 # ------------------------------------------------------------ group build
 
 
+def host_waits():
+    """The span `ivf.sync` around a point of a search where the host waits
+    on the card (a device read, or a copy or op that synchronizes), and
+    one more on the counter `ivf.syncs`."""
+    count("ivf.syncs")
+    return span("ivf.sync")
+
+
 def build_groups(probed: torch.Tensor, kk: int):
     """Pack (query, cluster) pairs into groups of at most QT rows that
     share one cluster (pallas_scan.py:385-443, with a stable sort and the
@@ -210,8 +219,10 @@ def build_groups(probed: torch.Tensor, kk: int):
     new_group = new_cluster | (rank % qt == 0)
     gid = torch.cumsum(new_group, dim=0) - 1
     pc = gid * qt + rank % qt  # strictly increasing over sorted pairs
-    g = int(gid[-1]) + 1 if p else 0
-    grp_cluster = sc[new_group]  # one entry per group start, in gid order
+    with host_waits():
+        g = int(gid[-1]) + 1 if p else 0
+    with host_waits():  # a boolean index: its length is read from the card
+        grp_cluster = sc[new_group]  # one entry per group start, in gid order
     qidx = torch.zeros(g * qt, dtype=torch.long, device=dev)
     qidx[pc] = sq
     pair_slot = torch.empty(p, dtype=torch.long, device=dev)
@@ -257,8 +268,9 @@ def ivf_scan_grouped(
     epilogue = _default_epilogue() if epilogue is None else epilogue
     kk = buckets.codes.shape[0]
     nprobe = max(1, min(nprobe, kk))
-    qn = cosine.l2_normalize(queries.float())
-    probed = probe(qn, centroids_n, nprobe)
+    with span("scan.probe"):
+        qn = cosine.l2_normalize(queries.float())
+        probed = probe(qn, centroids_n, nprobe)
     return grouped_scan(
         qn, qn.sum(dim=-1), buckets, counts, bucket_mask, probed, k,
         epilogue=epilogue, folded=folded,
@@ -284,12 +296,13 @@ def grouped_scan(
     elif epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
 
-    grouped = probed if probe_valid is None else torch.where(probe_valid, probed, kk)
-    qt, gcl, qidx, pair_slot = build_groups(grouped, kk)
-    qg = qn.bfloat16()[qidx]  # [G, QT, D]
-    qsum_g = qsum[qidx]  # [G, QT]
-    if folded is None:
-        folded = fold_sidecars(buckets, counts, bucket_mask)
+    with span("scan.groups"):
+        grouped = probed if probe_valid is None else torch.where(probe_valid, probed, kk)
+        qt, gcl, qidx, pair_slot = build_groups(grouped, kk)
+        qg = qn.bfloat16()[qidx]  # [G, QT, D]
+        qsum_g = qsum[qidx]  # [G, QT]
+        if folded is None:
+            folded = fold_sidecars(buckets, counts, bucket_mask)
     a, bv, bias = folded
 
     # block size of the blockexact maxima: 128 in production (cap is a
@@ -308,13 +321,15 @@ def grouped_scan(
     bx_fallback = k_eff > nprobe * nblk or k_eff * bs * 2 > nprobe * cap
     use_blocks = epilogue == "blockexact" and not bx_fallback
 
-    out, bmax = grouped_scores(
-        qg, qsum_g, gcl, counts.to(torch.int32), buckets.codes, a, bv, bias,
-        bs, use_blocks,
-    )
-    if not use_blocks:
-        return _flat_epilogue(out, pair_slot, probed, k, k_eff)
-    return _blockexact_epilogue(out, bmax, pair_slot, probed, k, k_eff, bs)
+    with span("scan.kernel"):
+        out, bmax = grouped_scores(
+            qg, qsum_g, gcl, counts.to(torch.int32), buckets.codes, a, bv, bias,
+            bs, use_blocks,
+        )
+    with span("scan.epilogue"):
+        if not use_blocks:
+            return _flat_epilogue(out, pair_slot, probed, k, k_eff)
+        return _blockexact_epilogue(out, bmax, pair_slot, probed, k, k_eff, bs)
 
 
 def _flat_epilogue(out, pair_slot, probed, k, k_eff):

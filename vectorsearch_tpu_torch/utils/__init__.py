@@ -1,4 +1,4 @@
 from .errors import fresh_exc
-from .profiling import device_memory_stats, device_trace, timed
+from .profiling import count, device_memory_stats, device_trace, snapshot, span
 
-__all__ = ["device_memory_stats", "device_trace", "fresh_exc", "timed"]
+__all__ = ["count", "device_memory_stats", "device_trace", "fresh_exc", "snapshot", "span"]
