@@ -68,6 +68,56 @@ def test_build_centroids_matches_jax():
     assert got.iterations == want.iterations
 
 
+def test_build_centroids_with_a_sampled_split_matches_jax(monkeypatch):
+    """The balance round's sub-build on a seeded sample of the split
+    cluster's members in both packages: at k=10 the round splits one
+    cluster of 120 rows, and SAMPLE_SIZE 80 draws 80 of them."""
+    monkeypatch.setattr(jk.constants, "SAMPLE_SIZE", 80)
+    monkeypatch.setattr(tk.constants, "SAMPLE_SIZE", 80)
+    sizes = []
+
+    def members(assignments, clusters):
+        out = members_by_cluster(assignments, clusters)
+        sizes.extend(m.size for m in out)
+        return out
+
+    members_by_cluster = tk._members_by_cluster
+    monkeypatch.setattr(tk, "_members_by_cluster", members)
+    packed = blobs(k=6, n_per=60, skew=True)
+    kw = dict(k=10, min_cluster_size=20, max_iters=30, chunk=128, seed=0)
+    want = jk.build_centroids(packed, **kw)
+    got = tk.build_centroids(packed, device="cpu", **kw)
+    assert max(sizes) > 80
+    assert_same_clustering(got, want)
+    assert got.iterations == want.iterations
+
+
+def _skewed(k=64, n=20_000, seed=0):
+    rng = np.random.default_rng(seed)
+    w = np.exp(rng.normal(size=k))
+    return rng.choice(k, size=n, p=w / w.sum()).astype(np.int32)
+
+
+def _as_the_build_picks(a):
+    counts = np.bincount(a)
+    return np.nonzero(counts > 2 * max(1, int(counts.sum() // len(counts))))[0]
+
+
+@pytest.mark.parametrize("assignments,clusters", [
+    (_skewed(), np.sort(np.random.default_rng(1).choice(64, size=40, replace=False))),
+    (_skewed(k=8, n=500), np.array([3])),
+    (np.array([0, 2, 2, 5, 0, 2], np.int32), np.array([0, 1, 2, 7])),  # 1 and 7: none
+    (_skewed(seed=2), _as_the_build_picks(_skewed(seed=2))),
+], ids=["many", "one", "no-members", "as-the-build-picks"])
+def test_members_by_cluster_is_each_clusters_nonzero(assignments, clusters):
+    got = tk._members_by_cluster(assignments, clusters)
+    assert len(got) == len(clusters) > 0
+    for c, rows in zip(clusters, got):
+        want = np.nonzero(assignments == c)[0]
+        assert rows.dtype == want.dtype == np.int64
+        np.testing.assert_array_equal(rows, want)
+
+
 # ---- on a mesh: 8 CPU shards here, JAX's 8-device virtual CPU mesh there
 
 

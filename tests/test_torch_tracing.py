@@ -150,16 +150,20 @@ def test_build_records_its_phases_and_passes_as_the_pass_recorder_does():
     from vsbench.drivers.build import PassRecorder
 
     rng = np.random.default_rng(4)
-    # one dense blob among spread rows: the balance round has a cluster to split
-    x = np.concatenate([rng.normal(size=(2500, 32)), 0.05 * rng.normal(size=(1500, 32)) + 3])
+    # two dense blobs among spread rows: the balance round has two clusters to split
+    x = np.concatenate([rng.normal(size=(2500, 32)), 0.05 * rng.normal(size=(1500, 32)) + 3,
+                        0.05 * rng.normal(size=(1500, 32)) - 3])
     packed = layout.pack_float(x.astype(np.float32))
+    kw = dict(k=8, max_iters=4, superset_iters=2, min_cluster_size=1, device="cpu")
+    # the clusters the round splits: those above twice the mean before it
+    counts = build_centroids(packed, balance_rounds=0, **kw).counts
+    splits = int((counts > 2 * max(1, int(counts.sum() // len(counts)))).sum())
     rec = PassRecorder(kmeans_kernels, len(x))
     rec.install()
     try:
         rec.recording = True
         with recorder() as prof:
-            build_centroids(packed, k=8, max_iters=4, superset_iters=2, min_cluster_size=1,
-                            device="cpu")
+            build_centroids(packed, **kw)
     finally:
         rec.remove()
     snap = profiling.snapshot()
@@ -169,6 +173,9 @@ def test_build_records_its_phases_and_passes_as_the_pass_recorder_does():
     assert snap["spans"]["build"]["count"] == 1
     # a balance round's sub-builds open their own (nested) lloyd phases
     assert snap["spans"]["build.balance"]["count"] == 1
+    # one pass over the assignments finds every split cluster's members
+    assert snap["spans"]["balance.members"]["count"] == 1
+    assert snap["counters"]["balance.splits"] == splits == 2
     assert snap["spans"]["build.lloyd"]["count"] > 1
     events = program_spans(prof)
     (build,) = [e for e in events if e.name == "vs::build"]

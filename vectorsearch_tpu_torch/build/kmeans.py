@@ -190,6 +190,21 @@ def _take(packed: PackedVectors, rows: np.ndarray) -> PackedVectors:
         return PackedVectors(*[to_host(a)[rows] for a in packed])
 
 
+def _members_by_cluster(assignments: np.ndarray, clusters: np.ndarray) -> list[np.ndarray]:
+    """Each cluster's rows, as `np.nonzero(assignments == c)[0]` gives them
+    (ascending int64), for every id in `clusters`, from one read of the
+    assignments (ids >= 0): a lookup of the clusters' ids selects their
+    rows, and a stable sort of the selected ids alone groups them by id,
+    keeping each group's rows ascending."""
+    lut = np.zeros(int(clusters.max()) + 2, dtype=bool)
+    lut[clusters] = True  # ids past the largest cluster clip to the last, False entry
+    rows = np.flatnonzero(np.take(lut, assignments, mode="clip"))
+    ids = assignments[rows]
+    rows = rows[np.argsort(ids, kind="stable")]
+    start = np.concatenate(([0], np.cumsum(np.bincount(ids, minlength=lut.size))))
+    return [rows[start[c]:start[c + 1]] for c in clusters]
+
+
 def kmeans(
     packed: PackedVectors,
     k: int,
@@ -334,13 +349,14 @@ def build_centroids(
                 result.centroids[i] for i in range(len(result.counts))
                 if i not in split
             ]
-            for ci in oversized:
-                with span("balance.members"):
-                    members = np.nonzero(result.assignments == ci)[0]
-                    if members.size > constants.SAMPLE_SIZE:
-                        members = np.random.default_rng(seed + int(ci)).choice(
-                            members, size=constants.SAMPLE_SIZE, replace=False
-                        )
+            with span("balance.members"):
+                count("balance.splits", int(oversized.size))
+                members_of = _members_by_cluster(result.assignments, oversized)
+            for ci, members in zip(oversized, members_of):
+                if members.size > constants.SAMPLE_SIZE:
+                    members = np.random.default_rng(seed + int(ci)).choice(
+                        members, size=constants.SAMPLE_SIZE, replace=False
+                    )
                 k_sub = max(2, -(-int(result.counts[ci]) // mean_count))
                 sub_res = kmeans(
                     _take(packed, members), k_sub, max_iters=10,
