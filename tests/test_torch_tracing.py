@@ -107,6 +107,22 @@ def test_device_trace_holds_the_spans_of_every_thread(tmp_path):
     assert {"vs::main", "vs::worker"} <= names
 
 
+def test_device_trace_holds_the_served_spans_of_the_loop_and_executor_threads(tmp_path):
+    from test_torch_served_batch import search_body, served
+
+    with served(rows=1000, clusters=4) as (_, client):
+        with profiling.device_trace(str(tmp_path)):
+            client.post("/api/search", search_body(range(8)))
+    (path,) = tmp_path.glob("trace-*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if str(e.get("name", "")).startswith(spans.PREFIX)]
+    tid = {e["name"][len(spans.PREFIX):]: e["tid"] for e in events}
+    # parsed and encoded on the event loop's thread, paged on an executor's
+    assert tid["http.parse"] == tid["http.encode"] == tid["http.request"]
+    assert tid["engine.pages"] == tid["engine.hits"] == tid["engine.search_many"]
+    assert tid["http.parse"] != tid["engine.pages"]
+
+
 def tiny_index(n=3000, d=64, k=12):
     rng = np.random.default_rng(3)
     packed = layout.pack_float(rng.normal(size=(n, d)).astype(np.float32))
@@ -206,6 +222,30 @@ BUILD = [host("build", 0, 2e6), host("build.upload", 0, 5e5), host("kmeans.pass"
          host("kmeans.pass", 1.2e6, 1.5e6), host("build", 3e6, 7e6),
          host("build.upload", 3e6, 4e6), host("kmeans.pass", 4e6, 6e6)]
 COUNTERS = {"ivf.calls": 4, "ivf.syncs": 20, "kmeans.passes": 18}
+# a batched request of 10 ms: parse 0.5 ms and encode 0.8 ms on the loop's
+# thread, pages 1 ms and hits 0.5 ms in its search_many on an executor's
+REQUEST = [host("http.request", 0, 10000), host("http.parse", 100, 600),
+           host("engine.search_many", 700, 9000), host("engine.pages", 5000, 6000),
+           host("engine.hits", 8000, 8500), host("http.encode", 9100, 9900)]
+# and a second one that overlaps it on other threads: read by time, its
+# parse, pages and hits would lie inside the first request's spans
+OVERLAPPING = REQUEST + [
+    host("http.request", 2000, 14000), host("http.parse", 2100, 2400),
+    host("engine.search_many", 2500, 13000), host("engine.pages", 6500, 8000),
+    host("engine.hits", 8200, 8400), host("http.encode", 13100, 13800)]
+# as a program without the new spans records the same requests
+UNSPLIT = [e for e in OVERLAPPING if e.name in ("vs::http.request", "vs::engine.search_many")]
+
+
+def span_table(events) -> dict:
+    """The table `profiling.snapshot()["spans"]` holds after the events:
+    each span's count and summed seconds, over every thread."""
+    table = {}
+    for e in events:
+        row = table.setdefault(e.name[len(spans.PREFIX):], {"count": 0, "seconds": 0.0, "cpu_s": 0.0})
+        row["count"] += 1
+        row["seconds"] += (e.end - e.start) / 1e6
+    return table
 
 
 @pytest.mark.parametrize("name, host_events, layer, want", [
@@ -214,17 +254,26 @@ COUNTERS = {"ivf.calls": 4, "ivf.syncs": 20, "kmeans.passes": 18}
     ("search.syncs_per_call", [], {}, 5.0),
     ("build.host_s", BUILD, {}, (0.7 + 1.0) / 2),
     ("build.passes", [], {"builds": 3}, 6.0),
+    ("served.json_ms", REQUEST, {}, 0.5 + 0.8),
+    ("served.pages_ms", REQUEST, {}, 1.0 + 0.5),
+    ("served.json_ms", OVERLAPPING, {}, (0.5 + 0.8 + 0.3 + 0.7) / 2),
+    ("served.pages_ms", OVERLAPPING, {}, (1.0 + 0.5 + 1.5 + 0.2) / 2),
+    ("served.json_ms", UNSPLIT, {}, None),
+    ("served.pages_ms", UNSPLIT, {}, None),
 ])
 def test_span_readers(monkeypatch, name, host_events, layer, want):
     reader = harness.load_module(tiny.ROOT / "vsbench" / "metrics" / f"{name}.py", f"t_{name}")
-    cell = tiny.cell("d10m-build" if name.startswith("build") else "d10m-lib-b512-np8")
+    cell = tiny.cell({"build": "d10m-build", "served": "d1m-http-batch256"}.get(
+        name.split(".")[0], "d10m-lib-b512-np8"))
 
     def reading(events, trace=True):
         out = harness.Outcome(attempted=1, failed=0, e2e={}, layer=dict(layer))
         return harness.Reading(cell, out, 1.0, Trace([], list(events)) if trace else None)
 
-    monkeypatch.setattr(profiling, "snapshot", lambda: {"spans": {}, "counters": COUNTERS})
-    assert reader.read(reading(host_events)) == pytest.approx(want)
+    monkeypatch.setattr(profiling, "snapshot",
+                        lambda: {"spans": span_table(host_events), "counters": COUNTERS})
+    got = reader.read(reading(host_events))
+    assert got is None if want is None else got == pytest.approx(want)
     # an older program: no spans in the trace, no snapshot() to read
     monkeypatch.delattr(profiling, "snapshot")
     assert reader.read(reading([])) is None

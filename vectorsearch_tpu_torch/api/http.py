@@ -292,11 +292,13 @@ def _accepts_zstd(request: Request) -> bool:
 
 def _json_response(request: Request, obj, compress=None) -> Response:
     """`compress` (build_app's) marks a route whose responses are
-    zstd-compressed for a client that accepts it."""
-    raw = json.dumps(obj).encode("utf-8")
-    headers = {}
-    if compress is not None and len(raw) > 64 and _accepts_zstd(request):
-        raw, headers = compress(raw), {"Content-Encoding": "zstd"}
+    zstd-compressed for a client that accepts it. The span `http.encode`,
+    on the event loop's thread."""
+    with profiling.span("http.encode"):
+        raw = json.dumps(obj).encode("utf-8")
+        headers = {}
+        if compress is not None and len(raw) > 64 and _accepts_zstd(request):
+            raw, headers = compress(raw), {"Content-Encoding": "zstd"}
     return Response(200, raw, "application/json", headers)
 
 
@@ -327,7 +329,9 @@ def build_app(engine):
                     405, "Invalid request method", Allow=", ".join(methods)
                 )
             try:
-                req = _read_json(request)
+                # the span `http.parse`, on the event loop's thread
+                with profiling.span("http.parse"):
+                    req = _read_json(request)
             except Exception:
                 return _json_error(400, "Invalid request")
             # client-cancel propagation (reference: ctx.Err() checks at

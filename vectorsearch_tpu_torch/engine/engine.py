@@ -39,6 +39,7 @@ from ..parallel import ShardedIVF
 from ..quant import codec, layout
 from ..quant.layout import PackedVectors
 from ..store import Store, snapshots
+from ..utils import profiling
 from ..utils.profiling import span, traced
 from .batcher import QueryBatcher
 from .cache import EngineCache
@@ -1204,32 +1205,36 @@ class Engine:
         # left in the probed pool fall back to the escalating window
         # helper — reusing the embedded vector and resolved state, so a
         # deep window never pays a second ai.embed round trip — rare,
-        # and only for deep windows
+        # and only for deep windows (the counter `engine.fallbacks`)
         pages: list[list[tuple[int, float]]] = []
-        for i in range(len(texts)):
-            hits: list[tuple[int, float]] = []
-            seen: set[int] = set()
-            row_ids = ids[i]
-            for emb_id, score in zip(row_ids, scores[i]):
-                if emb_id < 0:
-                    continue
-                doc_id = state.doc_map.get(int(emb_id))
-                if doc_id is None or doc_id in seen:
-                    continue
-                seen.add(doc_id)
-                hits.append((doc_id, float(score)))
-                if len(hits) >= want:
-                    break
-            if len(hits) < want and int((np.asarray(row_ids) >= 0).sum()) >= k:
-                _check_cancel(cancel)
-                pages.append(
-                    self._window_hits(
-                        state, queries[i], count, offset, nprobe, cancel,
-                        txid, min_k=2 * k,
+        fallbacks = 0
+        with span("engine.pages"):
+            for i in range(len(texts)):
+                hits: list[tuple[int, float]] = []
+                seen: set[int] = set()
+                row_ids = ids[i]
+                for emb_id, score in zip(row_ids, scores[i]):
+                    if emb_id < 0:
+                        continue
+                    doc_id = state.doc_map.get(int(emb_id))
+                    if doc_id is None or doc_id in seen:
+                        continue
+                    seen.add(doc_id)
+                    hits.append((doc_id, float(score)))
+                    if len(hits) >= want:
+                        break
+                if len(hits) < want and int((np.asarray(row_ids) >= 0).sum()) >= k:
+                    _check_cancel(cancel)
+                    fallbacks += 1
+                    pages.append(
+                        self._window_hits(
+                            state, queries[i], count, offset, nprobe, cancel,
+                            txid, min_k=2 * k,
+                        )
                     )
-                )
-            else:
-                pages.append(hits[offset : offset + count])
+                else:
+                    pages.append(hits[offset : offset + count])
+        profiling.count("engine.fallbacks", fallbacks)
 
         docs = {}
         if include_documents:
@@ -1245,20 +1250,21 @@ class Engine:
         _check_cancel(cancel)
 
         out: list[list[SearchHit]] = []
-        for i, page in enumerate(pages):
-            row_out = []
-            for doc_id, score in page:
-                if include_documents:
-                    d = docs.get(doc_id)
-                    if d is None:
-                        continue
-                    row_out.append(
-                        SearchHit(doc_id, score, d.name, d.external_id,
-                                  d.document)
-                    )
-                else:
-                    row_out.append(SearchHit(doc_id, score, "", "", None))
-            out.append(row_out)
+        with span("engine.hits"):
+            for i, page in enumerate(pages):
+                row_out = []
+                for doc_id, score in page:
+                    if include_documents:
+                        d = docs.get(doc_id)
+                        if d is None:
+                            continue
+                        row_out.append(
+                            SearchHit(doc_id, score, d.name, d.external_id,
+                                      d.document)
+                        )
+                    else:
+                        row_out.append(SearchHit(doc_id, score, "", "", None))
+                out.append(row_out)
         sugar().info(
             "%d search_many: %d queries, %d hits", txid, len(texts),
             sum(len(p) for p in out),
