@@ -480,13 +480,20 @@ def phase_build() -> dict:
     return out
 
 
-def check_scan(torch, gs, args, bs, label):
-    """grouped_scores against grouped_scores_ref on `args`: the same -inf
-    pattern and no NaN, scores within KERNEL_ATOL, and block maxima equal to
-    the maxima of the kernel's own scores. Returns (max |err|, out, bmax)."""
-    out, bmax = gs.grouped_scores(*args, bs, True)
+def check_scan(torch, gs, args, gcount, bs, label):
+    """grouped_scores against grouped_scores_ref on `args` and the group
+    count on the card `gcount`, launched as the search launches it (the
+    grid sized by the groups of `args`, build_groups' bound): on the groups
+    below the count, the same -inf pattern and no NaN, scores within
+    KERNEL_ATOL, and block maxima equal to the maxima of the kernel's own
+    scores. Returns (max |err|, out, bmax), out and bmax cut to the groups
+    below the count (read after the launch: the check's read, not the
+    search's)."""
+    out, bmax = gs.grouped_scores(*args, bs, True, gcount)
     torch.cuda.synchronize()
-    ref, _ = gs.grouped_scores_ref(*args, bs, False)
+    n = int(gcount)
+    out, bmax = out[:n], bmax[:n]
+    ref = gs.grouped_scores_ref(*args, bs, False, gcount)[0][:n]
     finite = torch.isfinite(ref)
     if not (torch.equal(torch.isfinite(out), finite)
             and torch.equal(torch.isneginf(out), torch.isneginf(ref))):
@@ -513,14 +520,17 @@ def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
     live_cols = torch.clamp((counts.long() + 127) // 128 * 128, max=cap)
     by_nprobe = {}
     for nprobe, probed in probed_by_nprobe.items():
-        qt, gcl, qidx, _ = gs.build_groups(probed, kk)
+        qt, gcl, qidx, _, gcount = gs.build_groups(probed, kk)
         qg, qsum = qn.bfloat16()[qidx], qn.sum(-1)[qidx]
         args = (qg, qsum, gcl, counts, codes, a, bv, bias)
-        err, out, bmax = check_scan(torch, gs, args, 128, f"{label} nprobe={nprobe}")
-        ms = median_ms(torch, lambda: gs.grouped_scores(*args, 128, True), launches=10)
-        single_ms = median_ms(torch, lambda: gs.grouped_scores(*args, 128, True))
-        plain_ms = median_ms(torch, lambda: gs.grouped_scores_ref(*args, 128, True), 5)
-        g = int(gcl.numel())
+        err, out, bmax = check_scan(torch, gs, args, gcount, 128, f"{label} nprobe={nprobe}")
+        ms = median_ms(torch, lambda: gs.grouped_scores(*args, 128, True, gcount), launches=10)
+        single_ms = median_ms(torch, lambda: gs.grouped_scores(*args, 128, True, gcount))
+        plain_ms = median_ms(torch, lambda: gs.grouped_scores_ref(*args, 128, True, gcount), 5)
+        # the groups that count, and the grid's (the bound the search
+        # launches with); the yardstick and the bound take the former
+        g, g_grid = out.shape[0], int(gcl.numel())
+        qg, gcl = qg[:g], gcl[:g]
         # the library yardstick, product only (no sidecars, no maxima, every
         # column of the bucket): torch.bmm of the group rows by their
         # buckets' codes, gathered and widened to bf16 outside the timing,
@@ -564,7 +574,7 @@ def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
         bnd = bound(int(live_cols[hit].sum()) * (d + 12) + fixed,
                     2 * d * int((pairs * live_cols).sum()), PEAK_BF16_FLOPS)
         r = by_nprobe[nprobe] = {
-            "G": g, "QT": qt, "max_abs_err": err, "ms": ms,
+            "G": g, "G_grid": g_grid, "QT": qt, "max_abs_err": err, "ms": ms,
             "single_launch_ms": single_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_timing": library_timing,
             **bnd, "share": bnd["bound_ms"] / ms,
@@ -575,7 +585,7 @@ def scan_timing(torch, dev, smi, label, store, qn, probed_by_nprobe) -> dict:
         if library_note:
             r["library_note"] = library_note
         lib = f"{library_ms:.3f} ms" if library_ms is not None else f"none ({library_note})"
-        log(f"kernel {label} nprobe={nprobe}: G={g} QT={qt} max_abs_err={err:.3g} "
+        log(f"kernel {label} nprobe={nprobe}: G={g} (grid {g_grid}) QT={qt} max_abs_err={err:.3g} "
             f"bmax exact; kernel {ms:.3f} ms (10 launches back to back; one launch "
             f"with the wrapper's host side {single_ms:.3f} ms) vs plain {plain_ms:.3f} ms, "
             f"library {lib} "
@@ -630,10 +640,11 @@ def scan_edge_cases(torch, dev) -> float:
         bs = 128 if cap % 128 == 0 else 64
         inside = (gcl >= 0) & (gcl < kk)
         args = (qg, qsum, gcl, counts, codes, a, bv, bias)
-        err, out, bmax = check_scan(torch, gs, args, bs, f"scan edge {label}")
+        every = torch.tensor([g], dtype=torch.int32, device=dev)
+        err, out, bmax = check_scan(torch, gs, args, every, bs, f"scan edge {label}")
         if not (torch.isneginf(out[~inside]).all() and torch.isneginf(bmax[~inside]).all()):
             raise AssertionError(f"scan edge {label}: a group without a cluster scored")
-        again, bmax_again = gs.grouped_scores(*args, bs, True)
+        again, bmax_again = gs.grouped_scores(*args, bs, True, every)
         torch.cuda.synchronize()
         if not (torch.equal(again, out) and torch.equal(bmax_again, bmax)):
             raise AssertionError(f"scan edge {label}: two launches differ")
@@ -1513,11 +1524,11 @@ def sharded_scan_checks(torch, sh, queries, shard=0) -> dict:
     for nprobe in SHARDED_CHECK_NPROBES:
         label = f"sharded scan, shard {shard} of {mesh.size}, nprobe={nprobe}"
         local, valid = sh.probes(qn, min(nprobe, sh.k_clusters))[shard]
-        _, gcl, qidx, _ = gs.build_groups(torch.where(valid, local, kk), kk)
+        _, gcl, qidx, _, gcount = gs.build_groups(torch.where(valid, local, kk), kk, masked=True)
         args = (x.bfloat16()[qidx], x.sum(-1)[qidx], gcl, sh.counts[shard],
                 sh.buckets[shard].codes, a, bv, bias)
-        err, scores, _ = check_scan(torch, gs, args, bs, label)
-        sentinel = gcl == kk
+        err, scores, _ = check_scan(torch, gs, args, gcount, bs, label)
+        sentinel = gcl[: scores.shape[0]] == kk
         if not torch.isneginf(scores[sentinel]).all():
             raise AssertionError(f"{label}: a group of another shard's clusters scored")
         del scores
@@ -1541,7 +1552,8 @@ def sharded_scan_checks(torch, sh, queries, shard=0) -> dict:
             raise AssertionError(f"{label}: grouped_scan top-k |kernel - plain| {topk_err} "
                                  f"> {KERNEL_ATOL}")
         out[nprobe] = {"K": kk, "cap": cap, "invalid_pairs": float(1 - valid.float().mean()),
-                       "G": int(gcl.numel()), "G_sentinel": int(sentinel.sum()),
+                       "G": int(sentinel.numel()), "G_grid": int(gcl.numel()),
+                       "G_sentinel": int(sentinel.sum()),
                        "max_abs_err": err, "topk_max_abs_err": topk_err}
         log(f"{label}: K={kk} cap={cap}, {out[nprobe]['invalid_pairs']:.3f} of the pairs "
             f"not this shard's, {out[nprobe]['G_sentinel']} of {out[nprobe]['G']} groups "
@@ -1930,12 +1942,14 @@ def bulk_check(torch, dev, packed, queries, truth_ids, ivf) -> dict:
     del parts
     launches_before = gs.LAUNCHES
     qn = cosine.l2_normalize(q)
-    qt, gcl, qidx, _ = gs.build_groups(gs.probe(qn, ivf.centroids_n, nprobe), ivf.k_clusters)
+    qt, gcl, qidx, _, gcount = gs.build_groups(gs.probe(qn, ivf.centroids_n, nprobe),
+                                               ivf.k_clusters)
     args = (qn.bfloat16()[qidx], qn.sum(-1)[qidx], gcl, ivf.counts_dev, ivf.buckets.codes,
             *ivf.folded)
-    out["groups"] = int(gcl.numel())
+    out["groups"] = int(gcount)
     out["scan_max_abs_err"], _, _ = check_scan(
-        torch, gs, args, 128, f"bulk nprobe={nprobe} B={b} G={out['groups']}")
+        torch, gs, args, gcount, 128,
+        f"bulk nprobe={nprobe} B={b} G={out['groups']} (grid {int(gcl.numel())})")
     gs.LAUNCHES = launches_before
     del args, qn, q
     if dev.type == "cuda":

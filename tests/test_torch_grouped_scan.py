@@ -159,23 +159,53 @@ def test_gather_formulation_matches_grouped():
     assert_topk_match(a[0].numpy(), a[1].numpy(), b[0].numpy(), b[1].numpy(), atol=1e-5)
 
 
-def test_group_build_covers_every_pair():
+@pytest.mark.parametrize("masked", [False, True], ids=["all-valid", "probe_valid"])
+@pytest.mark.parametrize("kk", [3, 20, 1024])
+@pytest.mark.parametrize("nprobe", [1, 5, 8])
+@pytest.mark.parametrize("b", [1, 37, 512])
+def test_group_build_covers_every_pair(b, nprobe, kk, masked):
     """Each (query, probe) pair lands on its own score row, in a group of
-    its cluster, and the group sizes respect QT."""
-    rng = np.random.default_rng(0)
-    probed = torch.from_numpy(
-        np.argsort(rng.random((37, 20)), axis=1)[:, :5].astype(np.int32)
-    )
-    qt, gcl, qidx, pair_slot = grouped_scan.build_groups(probed, 20)
-    assert qt in (8, 16, grouped_scan.QT_MAX)
+    its cluster, and the group sizes respect QT. The outputs have the
+    static bound's rows, min(P, ceil(P / QT) + min(K', P)) with K' = K + 1
+    where the pairs of probe_valid False are grouped under the id K; the
+    count left on the device is the exact group count of the plain
+    formulation (each cluster's pairs fill ceil(m / QT) groups); padding
+    groups carry the id K and no pair's row lies in one; the real groups
+    come in the order of their clusters."""
+    rng = np.random.default_rng(b * 100 + nprobe * 10 + kk + masked)
+    if nprobe <= kk:  # distinct probes a query, as the probe gives them
+        probed = np.argsort(rng.random((b, kk)), axis=1)[:, :nprobe]
+    else:
+        probed = rng.integers(0, kk, size=(b, nprobe))
+    if masked:  # grouped_scan's form of probe_valid False: the id K
+        probed = np.where(rng.random((b, nprobe)) < 0.7, probed, kk)
+    probed = probed.astype(np.int32)
+    qt, gcl, qidx, pair_slot, gcount = grouped_scan.build_groups(
+        torch.from_numpy(probed), kk, masked=masked)
+    p = b * nprobe
+    assert qt == grouped_scan.group_qt(p, kk) and qt in (8, 16, grouped_scan.QT_MAX)
+    g_max = min(p, -(-p // qt) + min(kk + masked, p))
+    assert gcl.shape == (g_max,) and qidx.shape == (g_max, qt)
+    assert gcl.dtype == torch.int32 and pair_slot.shape == (p,)
+    assert gcount.dtype == torch.int32 and gcount.shape == (1,)
+    _, m = np.unique(probed, return_counts=True)
+    n_groups = int((-(-m // qt)).sum())
+    assert int(gcount) == n_groups <= g_max
+    gcl, qidx = gcl.numpy(), qidx.numpy()
+    assert (gcl[n_groups:] == kk).all()
+    assert (np.diff(gcl[:n_groups]) >= 0).all()
     rows = pair_slot.numpy()
     assert len(set(rows)) == rows.size
     g, slot = rows // qt, rows % qt
-    np.testing.assert_array_equal(gcl.numpy()[g], probed.numpy().reshape(-1))
-    np.testing.assert_array_equal(
-        qidx.numpy()[g, slot], np.repeat(np.arange(37), 5)
-    )
+    assert (g < n_groups).all()
+    np.testing.assert_array_equal(gcl[g], probed.reshape(-1))
+    np.testing.assert_array_equal(qidx[g, slot], np.repeat(np.arange(b), nprobe))
 
+
+
+def _every_group(g):
+    """A group count on the CPU under which all g groups count."""
+    return torch.tensor([g], dtype=torch.int32)
 
 
 def _kernel_inputs(counts, seed, g=7, qt=8, d=32, tomb=0.15):
@@ -209,7 +239,7 @@ def test_plain_kernel_with_counts_is_the_same_function(counts, bs):
     out, bmax = grouped_scan.grouped_scores(
         qg, torch.from_numpy(qsum), torch.from_numpy(gcl), torch.from_numpy(cnt),
         torch.from_numpy(codes), torch.from_numpy(a), torch.from_numpy(bv),
-        torch.from_numpy(bias), bs, True)
+        torch.from_numpy(bias), bs, True, _every_group(len(gcl)))
     dots = np.einsum("gid,grd->gir", qg.double().numpy(), codes[gcl].astype(np.float64))
     want = dots * a[gcl][:, None] + qsum[:, :, None] * bv[gcl][:, None] + bias[gcl][:, None]
     dead = np.isneginf(want)
@@ -233,7 +263,7 @@ def test_plain_kernel_refuses_a_live_slot_past_counts():
         grouped_scan.grouped_scores(
             qg, torch.from_numpy(qsum), torch.from_numpy(gcl), torch.from_numpy(cnt),
             torch.from_numpy(codes), torch.from_numpy(a), torch.from_numpy(bv),
-            torch.from_numpy(bias), 128, False)
+            torch.from_numpy(bias), 128, False, _every_group(len(gcl)))
 
 
 def test_scan_with_folded_rows_from_the_caller_equals_folding_here():
@@ -321,11 +351,11 @@ def test_plain_kernel_scores_groups_without_a_cluster_as_neg_inf():
     what they are without it."""
     qg, qsum, gcl, cnt, codes, a, bv, bias = _kernel_inputs((128, 70, 33), seed=4)
     args = [torch.from_numpy(x) for x in (qsum, gcl, cnt, codes, a, bv, bias)]
-    base, bmax_base = grouped_scan.grouped_scores(qg, *args, 64, True)
+    base, bmax_base = grouped_scan.grouped_scores(qg, *args, 64, True, _every_group(len(gcl)))
     gcl_out = gcl.copy()
     gcl_out[[1, 4]] = (-1, 3)
     args[1] = torch.from_numpy(gcl_out)
-    out, bmax = grouped_scan.grouped_scores(qg, *args, 64, True)
+    out, bmax = grouped_scan.grouped_scores(qg, *args, 64, True, _every_group(len(gcl)))
     assert torch.isneginf(out[[1, 4]]).all() and torch.isneginf(bmax[[1, 4]]).all()
     keep = [0, 2, 3, 5, 6]
     assert torch.equal(out[keep], base[keep]) and torch.equal(bmax[keep], bmax_base[keep])

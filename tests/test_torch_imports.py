@@ -102,14 +102,18 @@ def _args(device):
     )
 
 
+def _count(device):
+    return torch.tensor([2], dtype=torch.int32, device=device)
+
+
 def test_wrapper_refuses_non_cpu_non_cuda_tensors():
     """Only CPU tensors take the plain version; anything else must be a
     CUDA launch or an error (a meta tensor stands in for a device the
     kernel does not run on)."""
     before = grouped_scan.LAUNCHES
     with pytest.raises(ValueError):
-        grouped_scan.grouped_scores(*_args("meta"), 64, False)
-    out, bmax = grouped_scan.grouped_scores(*_args("cpu"), 64, True)
+        grouped_scan.grouped_scores(*_args("meta"), 64, False, _count("meta"))
+    out, bmax = grouped_scan.grouped_scores(*_args("cpu"), 64, True, _count("cpu"))
     assert out.shape == (2, 8, 64) and bmax.shape == (2, 8, 1)
     assert grouped_scan.LAUNCHES == before
 

@@ -72,6 +72,12 @@ def _inputs(device, g, qt, kk, cap, d, seed, counts=None):
     return [q.bfloat16(), q.sum(-1), gcl, cnt, codes, a, bv, bias]
 
 
+def _every(args):
+    """The group count on the card under which every group of `args`
+    counts."""
+    return torch.tensor([args[0].shape[0]], dtype=torch.int32, device=args[0].device)
+
+
 @pytest.mark.parametrize(
     "qt,want_bmax,cap,d,counts",
     [(8, False, 256, 128, None), (16, True, 256, 128, None), (32, True, 256, 128, None),
@@ -89,8 +95,8 @@ def test_kernel_matches_plain(cuda, qt, want_bmax, cap, d, counts):
     bs = 128 if cap % 128 == 0 else 64
     args = _inputs(cuda, g, qt, kk, cap, d, seed=qt + d, counts=counts)
     before = grouped_scan.LAUNCHES
-    out, bmax = grouped_scan.grouped_scores(*args, bs, want_bmax)
-    ref, _ = grouped_scan.grouped_scores_ref(*args, bs, False)
+    out, bmax = grouped_scan.grouped_scores(*args, bs, want_bmax, _every(args))
+    ref, _ = grouped_scan.grouped_scores_ref(*args, bs, False, _every(args))
     torch.cuda.synchronize()
     assert grouped_scan.LAUNCHES == before + 1
     assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
@@ -108,8 +114,8 @@ def test_kernel_matches_plain_at_every_block_shape(cuda, g):
     """The launch gives a block 1, 2, 4 or 8 tiles by the number of groups:
     the same scores at each."""
     args = _inputs(cuda, g, 8, 40, 3072, 64, seed=g)
-    out, bmax = grouped_scan.grouped_scores(*args, 128, True)
-    ref, _ = grouped_scan.grouped_scores_ref(*args, 128, False)
+    out, bmax = grouped_scan.grouped_scores(*args, 128, True, _every(args))
+    ref, _ = grouped_scan.grouped_scores_ref(*args, 128, False, _every(args))
     torch.cuda.synchronize()
     assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
@@ -122,11 +128,66 @@ def test_group_without_cluster_scores_nothing(cuda):
     args = _inputs(cuda, 3, 8, 4, 128, 64, seed=5, counts=(128,))
     args[2][1] = -1
     args[2][2] = 4
-    out, bmax = grouped_scan.grouped_scores(*args, 128, True)
+    out, bmax = grouped_scan.grouped_scores(*args, 128, True, _every(args))
     torch.cuda.synchronize()
     for lost in (1, 2):
         assert torch.isneginf(out[lost]).all() and torch.isneginf(bmax[lost]).all()
     assert torch.isfinite(out[0]).any()
+
+
+def _launch_into(args, gcount, out, bmax, bs):
+    """vs_grouped_scores on `args` into the caller's `out` and `bmax`, so
+    that what the kernel leaves unwritten shows."""
+    qg, qsum, gcl, counts, codes, a, bv, bias = args
+    g, qt, d = qg.shape
+    kk, cap, _ = codes.shape
+    err = _build.load().vs_grouped_scores(
+        qg.data_ptr(), qsum.data_ptr(), gcl.data_ptr(), gcount.data_ptr(), counts.data_ptr(),
+        codes.data_ptr(), a.data_ptr(), bv.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), bmax.data_ptr(), g, qt, d, kk, cap, bs,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+
+
+@pytest.mark.parametrize("qt,cap,d,live", [
+    (8, 512, 128, 11), (16, 256, 768, 1), (32, 384, 128, 0), (8, 3072, 64, 1699)])
+def test_kernel_leaves_the_groups_past_the_count(cuda, qt, cap, d, live):
+    """With a group count on the card below the grid's groups, the rows
+    below it are what the kernel writes without a count, bit for bit, and
+    match grouped_scores_ref's with the same count; the rows at or past it
+    keep the NaN written before the launch, in the scores and the maxima."""
+    g = max(live + 7, 19)
+    args = _inputs(cuda, g, qt, 7, cap, d, seed=live + qt)
+    bs = 128
+    gcount = torch.tensor([live], dtype=torch.int32, device=cuda)
+    out = torch.full((g, qt, cap), float("nan"), device=cuda)
+    bmax = torch.full((g, qt, cap // bs), float("nan"), device=cuda)
+    _launch_into(args, gcount, out, bmax, bs)
+    full, full_bmax = grouped_scan.grouped_scores(*args, bs, True, _every(args))
+    ref, _ = grouped_scan.grouped_scores_ref(*args, bs, False, gcount)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[live:]).all() and torch.isnan(bmax[live:]).all()
+    assert torch.equal(out[:live], full[:live]) and torch.equal(bmax[:live], full_bmax[:live])
+    assert torch.isneginf(ref[live:]).all()
+    assert torch.equal(torch.isneginf(out[:live]), torch.isneginf(ref[:live]))
+    torch.testing.assert_close(out[:live], ref[:live], atol=1e-4, rtol=0)
+
+
+def test_read_back(cuda):
+    """read_back gives what to_host gives, after one wait, in memory of its
+    own."""
+    from vectorsearch_tpu_torch.device import read_back, to_host
+
+    t = torch.randn(512, 10, device=cuda)
+    i = torch.arange(5120, device=cuda).view(512, 10)
+    s, ids = read_back(t, i)
+    np.testing.assert_array_equal(s, to_host(t))
+    np.testing.assert_array_equal(ids, to_host(i))
+    assert s.flags.owndata and ids.flags.owndata
+
+
+def test_kernel_library_abi_version(cuda):
+    assert _build.load().vs_abi_version() == 7
 
 
 def test_ivf_search_on_card_matches_cpu(cuda):
@@ -197,7 +258,8 @@ def test_no_library_raises(cuda, monkeypatch):
     monkeypatch.setattr(_build, "library_path", no_library)
     before = grouped_scan.LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc"):
-        grouped_scan.grouped_scores(*_inputs(cuda, 2, 8, 3, 64, 16, 0), 64, False)
+        args = _inputs(cuda, 2, 8, 3, 64, 16, 0)
+        grouped_scan.grouped_scores(*args, 64, False, _every(args))
     assert grouped_scan.LAUNCHES == before
     rows = _rows_on(cuda, 1000, 512)
     cn_bf16, csum = _centroids_on(cuda, 5, 512, seed=0)
@@ -218,24 +280,30 @@ def test_no_library_raises(cuda, monkeypatch):
 
 def test_rejects_bad_input(cuda):
     args = _inputs(cuda, 2, 8, 3, 64, 16, 0)
+    every = _every(args)
     bad = list(args)
     bad[4] = bad[4].float()  # codes must be int8
     with pytest.raises(ValueError, match="codes"):
-        grouped_scan.grouped_scores(*bad, 64, False)
+        grouped_scan.grouped_scores(*bad, 64, False, every)
     for wrong in (args[3].long(), args[3][:2], args[3].float()):  # type, shape
         bad = list(args)
         bad[3] = wrong
         with pytest.raises(ValueError, match="counts"):
-            grouped_scan.grouped_scores(*bad, 64, False)
+            grouped_scan.grouped_scores(*bad, 64, False, every)
+    for wrong in (every.long(), every.repeat(2)):  # the group count: type, shape
+        with pytest.raises(ValueError, match="gcount"):
+            grouped_scan.grouped_scores(*args, 64, False, wrong)
     with pytest.raises(ValueError, match="CUDA device"):
-        grouped_scan.grouped_scores(*args[:3], args[3].cpu(), *args[4:], 64, False)
+        grouped_scan.grouped_scores(*args[:3], args[3].cpu(), *args[4:], 64, False, every)
+    with pytest.raises(ValueError, match="CUDA device"):
+        grouped_scan.grouped_scores(*args, 64, False, every.cpu())
     bad = list(args)
     bad[0] = torch.zeros((2, 12, 16), dtype=torch.bfloat16, device=cuda)
     bad[1] = torch.zeros((2, 12), device=cuda)
     with pytest.raises(ValueError, match="QT"):
-        grouped_scan.grouped_scores(*bad, 64, False)
+        grouped_scan.grouped_scores(*bad, 64, False, every)
     with pytest.raises(ValueError, match="CUDA device"):
-        grouped_scan.grouped_scores(*args[:4], args[4].cpu(), *args[5:], 64, False)
+        grouped_scan.grouped_scores(*args[:4], args[4].cpu(), *args[5:], 64, False, every)
 
 
 # ---------------------------------------------------------------- k-means

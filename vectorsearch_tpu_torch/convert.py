@@ -84,6 +84,7 @@ def ivf_from_arrays(arrays: dict, device=None) -> IVFIndex:
         counts=counts.copy(),
         counts_dev=to_device(counts, device),
         ids=np.asarray(arrays["ids"], np.int64).copy(),
+        ids_dev=to_device(np.asarray(arrays["ids"], np.int64), device),
         spill=flat_from_arrays(arrays, device),
         live_count=int(mask.sum()),
     )

@@ -65,6 +65,13 @@
 // belong to the next cluster and are computed but not stored. D % 16 == 0
 // (TMA's 16-byte row stride) and cap % 64 == 0 are the wrapper's rules.
 //
+// Groups past the count: the grid is sized by a bound on the number of
+// groups that the caller computes from the batch's shape, so that the
+// group build never reads its exact count back to the host. The exact
+// count stays on the card (`gcount`, one int32); a block whose group lies
+// at or past it returns before it reads or writes anything, and nobody
+// reads those rows.
+//
 // C interface (loaded with ctypes): vs_grouped_scores launches on the
 // given stream and returns cudaGetLastError() (or the error that stopped
 // it before the launch).
@@ -162,6 +169,7 @@ grouped_scores_kernel(const __grid_constant__ CUtensorMap map_codes,
                       const __grid_constant__ CUtensorMap map_q,
                       const float* __restrict__ qsum,
                       const int32_t* __restrict__ gcl,
+                      const int32_t* __restrict__ gcount,
                       const int32_t* __restrict__ counts,
                       const float* __restrict__ a,
                       const float* __restrict__ bv,
@@ -189,6 +197,7 @@ grouped_scores_kernel(const __grid_constant__ CUtensorMap map_codes,
   uint64_t* q_full = bars + 2 * MAX_STAGES;
 
   const int g = blockIdx.x;
+  if (g >= *gcount) return;  // uniform over the block
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int c = gcl[g];
@@ -385,10 +394,11 @@ grouped_scores_kernel(const __grid_constant__ CUtensorMap map_codes,
 
 // the library's ABI version: bumped whenever an entry point of any source
 // under csrc/ is added or changes its arguments
-extern "C" int vs_abi_version() { return 6; }
+extern "C" int vs_abi_version() { return 7; }
 
 extern "C" int vs_grouped_scores(const void* qg, const void* qsum,
-                                 const void* gcl, const void* counts,
+                                 const void* gcl, const void* gcount,
+                                 const void* counts,
                                  const void* codes, const void* a,
                                  const void* bv, const void* bias, void* out,
                                  void* bmax, int G, int QT, int D, int K,
@@ -421,7 +431,8 @@ extern "C" int vs_grouped_scores(const void* qg, const void* qsum,
   const int ntiles = (cap + COLS - 1) / COLS;
   // tiles per block: 8 where there are groups enough to fill the card with
   // such blocks (a block then loads its query rows once for all the live
-  // tiles of a bucket filled to a third), fewer for fewer groups, down to 1
+  // tiles of a bucket filled to a third), fewer for fewer groups, down to 1.
+  // G is the grid's groups, the caller's bound on the count
   int tiles = MAX_TILES;
   while (tiles > 1 && (long)G * ntiles < 1600L * tiles) tiles /= 2;
   const dim3 grid(G, (ntiles + tiles - 1) / tiles);
@@ -434,7 +445,8 @@ extern "C" int vs_grouped_scores(const void* qg, const void* qsum,
     if (e != cudaSuccess) return (int)e;                                       \
     grouped_scores_kernel<QTV, R><<<grid, THREADS, smem, st>>>(                \
         map_codes, map_q, static_cast<const float*>(qsum),                     \
-        static_cast<const int32_t*>(gcl), static_cast<const int32_t*>(counts), \
+        static_cast<const int32_t*>(gcl), static_cast<const int32_t*>(gcount), \
+        static_cast<const int32_t*>(counts),                                   \
         static_cast<const float*>(a), static_cast<const float*>(bv),           \
         static_cast<const float*>(bias), static_cast<float*>(out),             \
         static_cast<float*>(bmax), D, K, cap, bs, tiles, stages, stage_bytes); \

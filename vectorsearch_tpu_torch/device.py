@@ -79,6 +79,27 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
     return a.to(device=device, dtype=dtype)
 
 
+def read_back(*tensors) -> list[np.ndarray]:
+    """Device tensors as numpy arrays after one wait on the card: each is
+    queued as a copy into a pinned host tensor of its own, then one event
+    after the copies is waited for. The arrays are copies in ordinary
+    memory, so the pinned tensors go back to PyTorch's cache at once,
+    however long the caller keeps the answers. The caller counts the wait.
+    CPU tensors are returned as to_host returns them."""
+    if not any(t.is_cuda for t in tensors):
+        return [to_host(t) for t in tensors]
+    out = []
+    for t in tensors:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        out.append(host)
+    for dev in {t.device for t in tensors if t.is_cuda}:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+    return [h.numpy().copy() for h in out]
+
+
 # the device dtypes of packed rows' fields: int8 codes, f32 scale / offset /
 # inv_norm
 PACKED_DTYPES = (torch.int8, torch.float32, torch.float32, torch.float32)

@@ -180,6 +180,13 @@ class FlatIndex:
         """Top-k cosine search. Returns (scores f32[B,k], ids int64[B,k])
         as numpy; empty slots carry score -inf and id -1. refine=m>0
         re-ranks the coarse top-m with the exact f32 query."""
+        scores, slots = self.topk(queries, k, chunk=chunk, refine=refine)
+        scores = to_host(scores)
+        return scores, self.map_ids(scores, to_host(slots))
+
+    def topk(self, queries, k: int, chunk: int = 65_536, refine: int = 0):
+        """search's device part: (scores f32 [B, k], slots i64 [B, k]) as
+        device tensors, nothing read back."""
         q = torch.atleast_2d(to_device(queries, self.device, torch.float32))
         coarse_k = max(k, refine) if refine else k
         scores, slots = cosine.scan_topk_streamed(
@@ -188,9 +195,11 @@ class FlatIndex:
         )
         if refine:
             scores, slots = cosine.rescore_topk(q, self.packed, scores, slots, k)
-        scores, slots = to_host(scores), to_host(slots)
-        # slots of -inf entries may point at dead rows; clip before the id
-        # lookup, then null them out
+        return scores, slots
+
+    def map_ids(self, scores: np.ndarray, slots: np.ndarray) -> np.ndarray:
+        """External ids of topk's slots, read back: -1 where the score is
+        -inf. Slots of -inf entries may point at dead rows; they are
+        clipped before the lookup, then nulled."""
         safe = np.clip(slots, 0, len(self.ids) - 1)
-        out_ids = np.where(np.isneginf(scores), -1, self.ids[safe])
-        return scores, out_ids
+        return np.where(np.isneginf(scores), -1, self.ids[safe])

@@ -5,13 +5,14 @@ Counterpart of vectorsearch_tpu/index/ivf.py:
   centroids  f32[K, D]
   buckets    PackedVectors of tensors [K, cap, D] / [K, cap] (uniform
              padded capacity; counts mask the tail)
-  ids        host int64[K, cap]  slot -> external id
+  ids        host int64[K, cap]  slot -> external id (ids_dev on the device)
   spill      FlatIndex overflow tail for clusters that outgrow `cap`
 
-Query path: centroid top-nprobe probe -> grouped bucket scan (the CUDA
-kernel, kernels/grouped_scan.py) -> exact top-k epilogue -> exact-f32
-re-rank -> host id map -> merge with spill hits. nprobe = K takes the
-exhaustive streamed scan instead.
+Query path: upload -> centroid top-nprobe probe -> grouped bucket scan
+(the CUDA kernel, kernels/grouped_scan.py) -> exact top-k epilogue ->
+exact-f32 re-rank -> id map on the device -> one read back -> merge with
+spill hits. nprobe = K takes the exhaustive streamed scan instead. Between
+the upload and the read the host does not wait on the card.
 
 Mutations copy on write: `insert` and `remove_ids` write into clones, so
 an index object a reader holds never changes (the JAX package's arrays
@@ -32,7 +33,9 @@ import numpy as np
 import torch
 
 from .. import constants
-from ..device import check_exact_f32, resolve, to_device, to_host, upload_packed
+from ..device import (
+    check_exact_f32, read_back, resolve, to_device, to_host, upload_packed,
+)
 from ..kernels import cosine, grouped_scan
 from ..quant.layout import PackedVectors
 from ..utils.profiling import count, span, traced
@@ -155,7 +158,8 @@ class IVFIndex:
     """IVF-Flat index over packed cluster buckets.
 
     `counts`/`ids`/`mask_host` live on the host (slot allocation is a host
-    decision); `counts_dev` and `bucket_mask` mirror them on the device.
+    decision); `counts_dev`, `ids_dev` and `bucket_mask` mirror them on the
+    device.
     """
 
     centroids: torch.Tensor  # f32 [K, D]
@@ -166,6 +170,7 @@ class IVFIndex:
     counts: np.ndarray  # host int32 [K]
     counts_dev: torch.Tensor  # device int32 [K]
     ids: np.ndarray  # host int64 [K, cap]
+    ids_dev: torch.Tensor  # device int64 [K, cap]: the search's id map
     spill: FlatIndex
     # host-tracked count of live bucket rows
     live_count: int = 0
@@ -245,13 +250,12 @@ class IVFIndex:
         counts = np.bincount(assignments, minlength=kk).astype(np.int32)
         max_count = int(counts.max()) if n else 1
         cap = bucket_capacity(max_count, headroom)
+        # int8 code bytes + 3 f32 sidecars + bool mask + int64 id per slot
+        bytes_per_slot = d + 21
+        # the empty spill tail's fixed allocation (FlatIndex.hbm_bytes)
+        spill_reserve = constants.BUCKET_ROUND * (d + 13)
         if hbm_budget is not None:
-            # int8 code bytes + 3 f32 sidecars + device bool mask per slot
-            bytes_per_slot = d + 13
-            # reserve the empty spill tail's fixed allocation
-            bucket_budget = max(
-                0, hbm_budget - constants.BUCKET_ROUND * bytes_per_slot
-            )
+            bucket_budget = max(0, hbm_budget - spill_reserve)
             floor_cap = bucket_capacity(max_count, 1.0)
             fit_cap = (bucket_budget // (kk * bytes_per_slot)) if kk else cap
             fit_cap = (fit_cap // constants.BUCKET_ROUND) * constants.BUCKET_ROUND
@@ -302,8 +306,7 @@ class IVFIndex:
         cents = to_device(centroids, device, torch.float32)
         frozen = (
             hbm_budget is not None
-            and 2 * kk * cap * (d + 13)
-            > hbm_budget - constants.BUCKET_ROUND * (d + 13)
+            and 2 * kk * cap * bytes_per_slot > hbm_budget - spill_reserve
         )
         if frozen:
             from ..logger import sugar
@@ -311,7 +314,7 @@ class IVFIndex:
             sugar().info(
                 "bucket store frozen (2x%.1f GB copies exceed the %.1f GB "
                 "budget): streaming inserts go to the spill tail",
-                kk * cap * (d + 13) / 2**30, hbm_budget / 2**30,
+                kk * cap * bytes_per_slot / 2**30, hbm_budget / 2**30,
             )
         return IVFIndex(
             centroids=cents,
@@ -322,6 +325,7 @@ class IVFIndex:
             counts=counts,
             counts_dev=to_device(counts, device),
             ids=id_grid,
+            ids_dev=to_device(id_grid, device),
             spill=FlatIndex.create(d, device=device),
             live_count=n,
             frozen=frozen,
@@ -336,11 +340,16 @@ class IVFIndex:
         (reference: server/search.go:118-122). refine=m>0 re-ranks the
         coarse top-m candidates with the exact f32 query.
 
+        The host waits on the card twice: for the queries' upload, at the
+        head of the call where the card holds nothing of it yet, and for the
+        answers. The group count stays on the device, the id map runs there,
+        and the scores and ids (with the spill tail's answers, where it
+        holds rows) come back in one read.
+
         Spans (utils/profiling.py): `ivf.search` around the call, with the
         children `ivf.upload`, `ivf.dispatch` (the scan's stages `scan.*`
-        inside), `ivf.id_map`, `ivf.spill` and `ivf.sync` at each point
-        where the host waits on the card; the counters `ivf.calls` and
-        `ivf.syncs`."""
+        inside), `ivf.id_map`, `ivf.spill` and `ivf.sync` around each wait
+        on the card; the counters `ivf.calls` and `ivf.syncs`."""
         count("ivf.calls")
         with span("ivf.upload"), grouped_scan.host_waits():
             queries = torch.atleast_2d(to_device(queries, self.device, torch.float32))
@@ -393,12 +402,9 @@ class IVFIndex:
                     one(queries[i : i + bm], epi)
                     for i in range(0, queries.shape[0], bm)
                 ]
-                s = torch.cat([p[0] for p in parts], dim=0)
-                g = torch.cat([p[1] for p in parts], dim=0)
-            with grouped_scan.host_waits():
-                s = to_host(s)
-            with grouped_scan.host_waits():
-                return s, to_host(g)
+                if len(parts) == 1:  # a cat of one part would copy it
+                    return parts[0]
+                return tuple(torch.cat(t, dim=0) for t in zip(*parts))
 
         # On an out-of-memory dispatch: if the auto policy resolved to
         # blockexact, first downgrade to flat at the SAME batch (its extra
@@ -436,18 +442,24 @@ class IVFIndex:
         if retried:
             self._oom_memo[nprobe] = (cur_epi, b_max)
         with span("ivf.id_map"):
-            flat_ids = self.ids.reshape(-1)
-            safe = np.clip(gslot, 0, flat_ids.size - 1)
-            out_ids = np.where(np.isneginf(scores), -1, flat_ids[safe])
-
+            # -inf entries may carry the slot of a masked candidate: clamp
+            # before the gather, then null them
+            flat_ids = self.ids_dev.view(-1)
+            safe = torch.clamp(gslot, 0, flat_ids.numel() - 1)
+            ids = torch.where(torch.isneginf(scores), -1, flat_ids[safe])
+        spill = ()
         if self.spill.live > 0:
             with span("ivf.spill"):
-                s2, i2 = self.spill.search(queries, k, refine=refine)
-                both_s = np.concatenate([scores, s2], axis=-1)
-                both_i = np.concatenate([out_ids, i2], axis=-1)
-                take = np.argsort(-both_s, axis=-1, kind="stable")[:, :k]
-                scores = np.take_along_axis(both_s, take, axis=-1)
-                out_ids = np.take_along_axis(both_i, take, axis=-1)
+                spill = self.spill.topk(queries, k, refine=refine)
+        with grouped_scan.host_waits():
+            scores, out_ids, *spill = read_back(scores, ids, *spill)
+        if spill:
+            s2, slot2 = spill
+            both_s = np.concatenate([scores, s2], axis=-1)
+            both_i = np.concatenate([out_ids, self.spill.map_ids(s2, slot2)], axis=-1)
+            take = np.argsort(-both_s, axis=-1, kind="stable")[:, :k]
+            scores = np.take_along_axis(both_s, take, axis=-1)
+            out_ids = np.take_along_axis(both_i, take, axis=-1)
         return scores, out_ids
 
     def probe(self, queries, nprobe: int):
@@ -513,6 +525,8 @@ class IVFIndex:
             new_counts = np.minimum(counts, self.cap).astype(np.int32)
             id_grid = self.ids.copy()
             id_grid[cid[sel], slot[sel]] = ids[sel]
+            ids_dev = self.ids_dev.clone()
+            ids_dev[c_t, s_t] = torch.from_numpy(ids[sel]).to(dev)
             mask_host = self.mask_host.copy()
             mask_host[cid[sel], slot[sel]] = True
             idx = replace(
@@ -523,6 +537,7 @@ class IVFIndex:
                 counts=new_counts,
                 counts_dev=to_device(new_counts, dev),
                 ids=id_grid,
+                ids_dev=ids_dev,
                 live_count=self.live_count + len(sel),
             )
 
@@ -657,11 +672,11 @@ class IVFIndex:
 
     @property
     def hbm_bytes(self) -> int:
-        """Device footprint: packed buckets (codes + sidecars + mask), the
-        folded sidecar rows once a search has made them, plus the spill
-        tail, which grows without bound on a frozen index."""
+        """Device footprint: packed buckets (codes + sidecars + mask + the
+        ids' mirror), the folded sidecar rows once a search has made them,
+        plus the spill tail, which grows without bound on a frozen index."""
         kk, cap, d = self.buckets.codes.shape
-        per_slot = d + 13 + (12 if "folded" in self.__dict__ else 0)
+        per_slot = d + 21 + (12 if "folded" in self.__dict__ else 0)
         return kk * cap * per_slot + self.spill.hbm_bytes
 
     def compact(
@@ -678,12 +693,12 @@ class IVFIndex:
 
     def release_device(self) -> None:
         """Free this index's device buffers (bucket store, mask, counts,
-        the folded sidecar rows if a search made them, spill tail) now,
+        ids, the folded sidecar rows if a search made them, spill tail) now,
         without waiting for the last reference to go: the frozen-store
         re-pack must free the old store before the new layout uploads.
         The index is unusable afterwards."""
         for t in (
-            *self.buckets, self.bucket_mask, self.counts_dev,
+            *self.buckets, self.bucket_mask, self.counts_dev, self.ids_dev,
             *self.__dict__.pop("folded", ()),
             *self.spill.packed, self.spill.mask,
         ):

@@ -99,10 +99,10 @@ def load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.vs_abi_version.argtypes = []
             lib.vs_abi_version.restype = i32
-            if lib.vs_abi_version() != 6:
+            if lib.vs_abi_version() != 7:
                 raise RuntimeError("kernel library ABI mismatch")
             for name, argtypes in (
-                ("vs_grouped_scores", [ptr] * 10 + [i32] * 6 + [ptr]),
+                ("vs_grouped_scores", [ptr] * 11 + [i32] * 6 + [ptr]),
                 ("vs_kmeans_assign", [ptr] * 7 + [i32] * 3 + [ptr]),
                 ("vs_kmeans_accumulate", [ptr] * 9 + [i32] * 5 + [ptr]),
                 ("vs_kmeans_accumulate_loads", [ptr] * 7 + [i32] * 2 + [ptr]),

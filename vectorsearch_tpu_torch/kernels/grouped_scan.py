@@ -82,7 +82,9 @@ def group_qt(p: int, kk: int) -> int:
 # ---------------------------------------------------------------- kernel
 
 
-def grouped_scores_ref(qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax):
+def grouped_scores_ref(
+    qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax, gcount
+):
     """Plain PyTorch version of the kernel, in full f32 (TF32 off): the
     codes and the bf16 query rows are widened to f32, whose products are
     exact. Chunked over groups: a gather of codes[gcl] at G~2000,
@@ -91,7 +93,8 @@ def grouped_scores_ref(qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax)
     It scores every slot and needs `counts` for nothing; on CPU tensors it
     asserts the kernel's precondition on it (see grouped_scores). A group
     whose cluster id lies outside [0, K) scores -inf everywhere, as in the
-    kernel."""
+    kernel. Groups at or past `gcount` (i32 [1]) are -inf here; the
+    kernel leaves them unwritten, and nothing reads them."""
     g, qt, d = qg.shape
     kk, cap, _ = codes.shape
     if counts.device.type == "cpu":
@@ -113,14 +116,15 @@ def grouped_scores_ref(qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax)
             + qsum[g0 : g0 + step][:, :, None] * bv[c][:, None, :]
             + bias[c][:, None, :]
         )
-        inside = (gc >= 0) & (gc < kk)
+        rows = torch.arange(g0, g0 + gc.shape[0], device=gc.device)
+        inside = (gc >= 0) & (gc < kk) & (rows < gcount.to(gc.device))
         out[g0 : g0 + step] = torch.where(inside[:, None, None], scores, cosine.NEG_INF)
     bmax = out.view(g, qt, cap // bs, bs).amax(dim=-1) if want_bmax else None
     return out, bmax
 
 
 def grouped_scores(
-    qg, qsum, gcl, counts, codes, a, bv, bias, bs: int, want_bmax: bool
+    qg, qsum, gcl, counts, codes, a, bv, bias, bs: int, want_bmax: bool, gcount
 ):
     """Score every group's QT query rows against its cluster's bucket.
 
@@ -128,6 +132,11 @@ def grouped_scores(
     codes i8 [K, cap, D]; a, bv, bias f32 [K, cap]. Returns (scores f32
     [G, QT, cap], bmax f32 [G, QT, cap // bs] or None). On CPU tensors this
     is grouped_scores_ref; on CUDA tensors it launches the kernel or raises.
+
+    gcount: i32 [1] on the same device, the number of groups that count:
+    G is a bound on it (build_groups'), the kernel's blocks of the groups
+    at or past it return at once, and their rows of both outputs are left
+    unwritten.
 
     Precondition: the sidecars are finite except that bias[c, r] is -inf at
     every slot r >= counts[c] (and at tombstones), which fold_sidecars
@@ -138,11 +147,11 @@ def grouped_scores(
     """
     global LAUNCHES
     dev = _build.launch_device(
-        "grouped_scores", (qg, qsum, gcl, counts, codes, a, bv, bias)
+        "grouped_scores", (qg, qsum, gcl, gcount, counts, codes, a, bv, bias)
     )
     if dev is None:
         return grouped_scores_ref(
-            qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax
+            qg, qsum, gcl, counts, codes, a, bv, bias, bs, want_bmax, gcount
         )
     g, qt, d = qg.shape
     kk, cap, dc = codes.shape
@@ -150,6 +159,7 @@ def grouped_scores(
         "qg": (qg, torch.bfloat16, (g, qt, d)),
         "qsum": (qsum, torch.float32, (g, qt)),
         "gcl": (gcl, torch.int32, (g,)),
+        "gcount": (gcount, torch.int32, (1,)),
         "counts": (counts, torch.int32, (kk,)),
         "codes": (codes, torch.int8, (kk, cap, d)),
         "a": (a, torch.float32, (kk, cap)),
@@ -174,7 +184,8 @@ def grouped_scores(
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.vs_grouped_scores(
-            qg.data_ptr(), qsum.data_ptr(), gcl.data_ptr(), counts.data_ptr(),
+            qg.data_ptr(), qsum.data_ptr(), gcl.data_ptr(), gcount.data_ptr(),
+            counts.data_ptr(),
             codes.data_ptr(), a.data_ptr(), bv.data_ptr(), bias.data_ptr(),
             out.data_ptr(), bmax.data_ptr() if bmax is not None else None,
             g, qt, d, kk, cap, bs, torch.cuda.current_stream(dev).cuda_stream,
@@ -196,19 +207,36 @@ def host_waits():
     return span("ivf.sync")
 
 
-def build_groups(probed: torch.Tensor, kk: int):
-    """Pack (query, cluster) pairs into groups of at most QT rows that
-    share one cluster (pallas_scan.py:385-443, with a stable sort and the
-    exact group count in place of the static bound g_max).
+def group_bound(p: int, qt: int, n_ids: int) -> int:
+    """Most groups that p pairs over n_ids distinct cluster ids can make:
+    a cluster's m pairs fill ceil(m / QT) <= m // QT + 1 groups, so the sum
+    is at most ceil(p / QT) plus the distinct clusters, and never more than
+    one group a pair (pallas_scan.py's g_max, capped at p)."""
+    return min(p, -(-p // qt) + min(n_ids, p))
 
-    Returns (qt, grp_cluster i32 [G], qidx i64 [G, QT], pair_slot i64 [P])
-    where pair_slot maps flat pair b*nprobe+j to its row of the
-    [G * QT, cap] score grid. Unused rows of the last group of a cluster
-    point at query 0; pair_slot never selects them."""
+
+def build_groups(probed: torch.Tensor, kk: int, masked: bool = False):
+    """Pack (query, cluster) pairs into groups of at most QT rows that
+    share one cluster (pallas_scan.py:385-443, with a stable sort). The
+    outputs are sized by group_bound from the shape alone, as the JAX
+    package's g_max, so nothing is read back to the host: the exact count
+    stays on the device.
+
+    probed: cluster ids in [0, K), or in [0, K] when `masked` (grouped_scan
+    puts the pairs of probe_valid False under the id K).
+
+    Returns (qt, grp_cluster i32 [G], qidx i64 [G, QT], pair_slot i64 [P],
+    gcount i32 [1]) with G = group_bound(P, QT, K or K + 1). The first
+    gcount groups are the real ones, in the order of their clusters; the
+    padding groups after them carry the cluster id K and query 0. pair_slot
+    maps flat pair b*nprobe+j to its row of the [G * QT, cap] score grid;
+    it never selects a padding group, nor an unused row of the last group
+    of a cluster (those point at query 0)."""
     b, nprobe = probed.shape
     p = b * nprobe
     dev = probed.device
     qt = group_qt(p, kk)
+    g = group_bound(p, qt, kk + 1 if masked else kk)
     sc, order = torch.sort(probed.reshape(p).to(torch.int32), stable=True)
     sq = torch.div(order, nprobe, rounding_mode="floor")
     idx = torch.arange(p, device=dev)
@@ -219,15 +247,16 @@ def build_groups(probed: torch.Tensor, kk: int):
     new_group = new_cluster | (rank % qt == 0)
     gid = torch.cumsum(new_group, dim=0) - 1
     pc = gid * qt + rank % qt  # strictly increasing over sorted pairs
-    with host_waits():
-        g = int(gid[-1]) + 1 if p else 0
-    with host_waits():  # a boolean index: its length is read from the card
-        grp_cluster = sc[new_group]  # one entry per group start, in gid order
+    gcount = new_group.sum(dtype=torch.int32).reshape(1)
+    # every pair of a group carries its cluster: the scatter's duplicate
+    # writes agree
+    grp_cluster = torch.full((g,), kk, dtype=torch.int32, device=dev)
+    grp_cluster[gid] = sc
     qidx = torch.zeros(g * qt, dtype=torch.long, device=dev)
     qidx[pc] = sq
     pair_slot = torch.empty(p, dtype=torch.long, device=dev)
     pair_slot[order] = pc
-    return qt, grp_cluster.contiguous(), qidx.view(g, qt), pair_slot
+    return qt, grp_cluster, qidx.view(g, qt), pair_slot, gcount
 
 
 def fold_sidecars(buckets: PackedVectors, counts, bucket_mask):
@@ -298,7 +327,9 @@ def grouped_scan(
 
     with span("scan.groups"):
         grouped = probed if probe_valid is None else torch.where(probe_valid, probed, kk)
-        qt, gcl, qidx, pair_slot = build_groups(grouped, kk)
+        qt, gcl, qidx, pair_slot, gcount = build_groups(
+            grouped, kk, masked=probe_valid is not None
+        )
         qg = qn.bfloat16()[qidx]  # [G, QT, D]
         qsum_g = qsum[qidx]  # [G, QT]
         if folded is None:
@@ -324,7 +355,7 @@ def grouped_scan(
     with span("scan.kernel"):
         out, bmax = grouped_scores(
             qg, qsum_g, gcl, counts.to(torch.int32), buckets.codes, a, bv, bias,
-            bs, use_blocks,
+            bs, use_blocks, gcount,
         )
     with span("scan.epilogue"):
         if not use_blocks:
