@@ -50,14 +50,20 @@ FAIL: line and exits 1 before the last line is printed):
         torch._int_mm / torch.matmul of the queries by the codes (the
         product alone); then each kernel under other schedules (one tile a
         block, 64 queries a block, shallower rings);
-  4. index at the bench's scale: bench.py's 1M x 768 clustered corpus and
-     512 queries (the port's bench.make_corpus, make_queries), exact-f32
-     ground truth, the k-means build with bench.py's arguments,
+  4. index at bench.py's scale: its 1M x 768 clustered corpus and 512
+     queries (make_corpus, make_queries below, bit for bit bench.py's),
+     exact-f32 ground truth, the k-means build with bench.py's arguments,
      IVFIndex.build, then IVFIndex.search at nprobe 1, 2, 8, 64 and -1
-     (recall@10 and QPS), 10,000 inserts that
-     must find themselves first and 10,000 deletes that must never return;
-     the searches once more under torch.profiler, device time by kind of
-     kernel beside the unprofiled wall (outside the phase's launch counts);
+     (recall@10 and QPS; B=512 takes QT 8 at nprobe 1 and 2, 16 at 8 and
+     32 at 64 on this index); the searches once more under torch.profiler,
+     device time by kind of kernel beside the unprofiled wall (outside the
+     phase's launch counts); then bench.py's widest bulk shape (nprobe 2,
+     B=65536; bulk_check): the scan kernel on that call's groups against
+     its plain version, the call's top-10, and IVFIndex.search's on the
+     same rows (its batch-chunked dispatch), against the same rows searched
+     512 at a time (sets equal but at ties), and its recall at the floor;
+     then 10,000 inserts that must find themselves first and 10,000
+     deletes that must never return;
   5. flat: flat_search (k=10, k_bands=64) with the s8 and with the bf16
      band kernel, and FlatIndex.search(refine=32) beside them, on phase
      4's corpus, queries and truth: recall@10, no id twice in a result,
@@ -81,14 +87,6 @@ FAIL: line and exits 1 before the last line is printed):
      document never returns); and child processes, one a card (one on a
      machine with one card), that join an `nccl` group through
      maybe_initialize and search a ShardedIVF over global_mesh();
-  6b. batchsweep (vectorsearch_tpu_torch/tools/batch_sweep.py's sweep at its
-     defaults on phase 4's index before any write): at nprobe 1 and 2 and
-     B 512, 1024, 2048 and 4096, recall@10 at each point's shape (the 1M
-     cell's floors), ms and QPS a search on distinct queries, every point
-     finite and positive; then bench's widest bulk shape (nprobe 2,
-     B=65536): the scan kernel on that call's groups against its plain
-     version, the call's top-10 against the same rows searched 512 at a
-     time (sets equal but at ties), and its recall at the floor;
   7. graft: the port's graft entry points (vectorsearch_tpu_torch/graft_entry.py):
      entry()'s forward (probe + grouped scan, nprobe=2, k=10) on the card at
      its example shape against the same function on CPU copies of its
@@ -100,37 +98,13 @@ FAIL: line and exits 1 before the last line is printed):
      pass, ShardedFlat, ShardedIVF with and without refine held against
      IVFIndex, an Engine whose rebuild installs the replica and serves 6
      concurrent searches through the batcher);
-  8. hostpath (vectorsearch_tpu_torch/tools/host_profile.py and
-     bench_http_concurrent.py on phase 4's 1M x 768 rows, build and
-     queries: BASELINE config 3, nothing cut): the native codec's build
-     (openmp, serial or numpy; numpy where a C++ compiler is present
-     fails); host_profile's split of one in-process Engine.search at
-     nprobe 1 and 8 (embed, the batcher's
-     device dispatch, the SQL fetch, the rest; a cProfile to stderr) and
-     the HTTP layer on top (sequential HTTP latency minus in-process);
-     then an engine booted from an in-memory SQL store of the same rows,
-     its recall@10 at nprobe 8 (>= 0.96), and bench_http_concurrent's
-     sweep at 1, 8 and 32 clients (requests/s, dispatches, rows a
-     dispatch, p50/p99, no error), with the clients in this process and
-     then from a client process of their own. Both tools' JSON lines go
-     to stdout;
-  8b. bench: `python -m vectorsearch_tpu_torch.bench` in a subprocess at its
-     defaults (bench.py's 1M x 768, K=1024; nothing cut), its setup cache
-     in a fresh temporary directory removed after, so the setup (corpus,
-     queries, exact-f32 truth) runs on the card: exit 0, a complete
-     headline line with a positive value, a recall/QPS line for every
-     planned row (ivf+refine at nprobe 1, 2, 8, 64 at B=512; bulk_plan's
-     eight points, 65536 and 16384 at nprobe 1 and 2, 8192 and 4096 at 8,
-     2048 and 1024 at 64; flat+refine B=512), the IVF rows at the 1M cell's
-     floors and flat+refine >= 0.96, and its launch line;
-  8c. benchbuild: `python -m vectorsearch_tpu_torch.bench_build` in a
-     subprocess with VSTPU_BUILD_N=1,000,000 (BENCHBUILD_N: cut from 10M,
-     whose build phase 11 runs with the same arguments), its cache as
-     bench's: exit 0, its JSON line, the max/mean cluster line, its launch
-     line;
-  9. engine: upload, rebuild (Engine.refresh_centroids), search,
-     search_many, delete and a snapshot reboot through Engine, with the
-     deterministic noop embedder;
+  9. engine: the native codec's build (openmp, serial or numpy; numpy
+     where a C++ compiler is present fails); an engine booted from an
+     in-memory SQL store of phase 4's 1M x 768 rows (each row's
+     centroid_id its assignment, no rebuild), its recall@10 at nprobe 8
+     in-process against the truth (>= 0.96); then upload, rebuild
+     (Engine.refresh_centroids), search, search_many, delete and a
+     snapshot reboot through Engine, with the deterministic noop embedder;
   10. server: the port's entry (vectorsearch_tpu_torch.__main__.run) in
      this process, on a free localhost port over a temporary SQLite store
      and snapshot dir, with a deterministic embedder at D=768 (a text's
@@ -153,9 +127,9 @@ FAIL: line and exits 1 before the last line is printed):
      exits 0 on SIGTERM;
   11. the 10M build: bench_build.py's configuration, 10M x 768 clustered
      packed rows from 4096 generating centers (made on the card from a
-     fixed seed, moved to host numpy once) -> vectorsearch_tpu_torch's
-     bench_build.build (build_centroids with k=4096 and bench_build.py's
-     arguments): build seconds, iterations, final
+     fixed seed, moved to host numpy once) -> tools/scale_corpus.build
+     (build_centroids with k=4096 and bench_build.py's arguments): build
+     seconds, iterations, final
      churn, cluster sizes and peak device memory; then, outside the phase's
      launch counts, the same build under torch.profiler, its device time
      summed by kernel;
@@ -201,12 +175,11 @@ FAIL: line and exits 1 before the last line is printed):
      rows at the 10M shapes of phase 12 stand beside the 1M ones.
 
 Every kernel launch count is set to 0 just before each of phases 4-13 and
-read just after (for 8b and 8c, which run in a subprocess, the counts
-that process logs): phases 4, 6, 7, 8b, 9, 10 and 13 must launch the
-grouped scan and both k-means kernels (phase 6 the scan at least once a
-shard of every search on the card's 4 shards), phase 5 both flat band
-kernels, phases 6b and 8 the scan, phases 8c and 11 both k-means kernels,
-phase 12 the scan and both band kernels. The script
+read just after: phases 4, 6, 7, 9, 10 and 13 must launch the grouped
+scan and both k-means kernels (phase 6 the scan at least once a shard of
+every search on the card's 4 shards), phase 5 both flat band kernels,
+phase 11 both k-means kernels, phase 12 the scan and both band kernels.
+The script
 imports only the port,
 vectorsearch_tpu_torch (the codec, store, config schema and noop embedder
 through vectorsearch_tpu_torch.host), and checks at the end that neither
@@ -215,7 +188,6 @@ jax nor anything of the JAX package vectorsearch_tpu was imported.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import re
 import signal
@@ -228,7 +200,7 @@ import traceback
 
 import numpy as np
 
-# bench.py's corpus and queries (the port's bench.make_corpus, make_queries)
+# bench.py's corpus and queries (make_corpus, make_queries)
 N, DIM, K_GEN = 1_000_000, 768, 1024
 N_QUERIES, TOPK, REFINE = 512, 10, 32
 NPROBES = (1, 2, 8, 64, -1)
@@ -337,35 +309,16 @@ SERVE10M_BAND_BS = (64, N_QUERIES)
 # 700 W the phase took 1340 s alone at 10M, 445.7 s at 3M (the script
 # 799 s) and 212-250 s at 2M (the script 472-529 s)
 ENGINE10M_N = 2_000_000
-# the host-path phase (BASELINE config 3, the IVF deployment: phase 4's
-# 1M x 768 rows, build and queries, nothing cut): host_profile's rounds a
-# probe width
-HOSTPATH_ROUNDS = 300
-# the bench harness (vectorsearch_tpu_torch/bench.py, bench_build.py), each
-# a subprocess of this script: its time limit, and bench_build's rows, cut
-# from its 10M (phase 11 runs the 10M build with the same arguments, and
-# bench_build.py's host recipe at 10M writes a 7.7 GB cache)
-HARNESS_TIMEOUT_S = 600
-BENCHBUILD_N = 1_000_000
-# bulk_check's reference: the widest bulk batch searched this many rows a call
+# bench.py's widest bulk batch (bulk_check), and its reference: the same
+# rows searched this many a call
+BULK_BATCH = 65_536
 BULK_CHECK_SPLIT = 512
-# the harness's log lines read by the bench phases
-BENCH_ROW = re.compile(r"bench: (\S+ \S+) recall@10=([\d.]+) qps/chip=(\d+) \(batch (\d+)\)")
-BENCH_BULK = re.compile(r"bench: (ivf\+refine nprobe=\d+) B=(\d+) \(bulk\) qps/chip=(\d+) "
-                        r"\(recall reused from B=\d+: ([\d.]+)\)")
-HARNESS_LAUNCHES = re.compile(r"bench: kernel launches (\{.*\})")
-BUILD_LINE = re.compile(r"build-bench: (\d+) centroids over (\d+) vectors in ([\d.]+)s; "
-                        r"max/mean cluster (\d+)/(\d+)")
 # the kernels each phase run through run() must launch
 PHASE_KERNELS = {
     "index": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "flat": ("flat_bands_s8", "flat_bands_bf16"),
     "sharded": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
-    "batchsweep": ("grouped_scores",),
     "graft": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
-    "hostpath": ("grouped_scores",),
-    "bench": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
-    "benchbuild": ("kmeans_assign", "kmeans_accumulate"),
     "engine": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "server": ("grouped_scores", "kmeans_assign", "kmeans_accumulate"),
     "build10m": ("kmeans_assign", "kmeans_accumulate"),
@@ -408,6 +361,102 @@ def median_ms(torch, fn, runs=20, launches=1):
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / launches)
     return float(np.median(times))
+
+
+# ------------------------------------------ bench.py's 1M corpus and search
+# MIN_RECALL's floors were measured on this corpus: its recipe stays bit for
+# bit bench.py's (tests/test_torch_scale.py holds make_corpus to it)
+
+
+def make_corpus(n, dim, k, seed=0):
+    """Clustered synthetic corpus (vectorpedia-style locality)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k, dim), dtype=np.float32)
+    assign = rng.integers(0, k, size=n)
+    out = centers[assign] * np.float32(2.0)
+    # chunked f32 noise: ~4x faster than normal() (no f64 intermediate)
+    for start in range(0, n, 100_000):
+        end = min(start + 100_000, n)
+        out[start:end] += rng.standard_normal((end - start, dim), dtype=np.float32)
+    return out
+
+
+def make_queries(data, n_queries, seed=123):
+    """bench.py's queries: distinct corpus rows plus 0.1 gaussian noise."""
+    rng = np.random.default_rng(seed)
+    q_idx = rng.choice(data.shape[0], size=n_queries, replace=False)
+    return (
+        data[q_idx] + rng.normal(size=(n_queries, data.shape[1])).astype(np.float32) * 0.1
+    ).astype(np.float32)
+
+
+def exact_truth(data, queries, dev) -> np.ndarray:
+    """Row numbers [Q, TOPK] of each query's exact-f32 cosine top-10 over
+    the rows `data`, on `dev` 64 queries at a time, TF32 off."""
+    import torch
+
+    from vectorsearch_tpu_torch.device import check_exact_f32, to_device, to_host
+    from vectorsearch_tpu_torch.kernels import cosine
+
+    corpus = cosine.l2_normalize(to_device(data, dev))
+    qn = cosine.l2_normalize(to_device(queries, dev))
+    check_exact_f32(qn)
+    truth = np.concatenate([
+        to_host(torch.topk(qn[i : i + 64] @ corpus.T, TOPK, dim=-1).indices)
+        for i in range(0, qn.shape[0], 64)
+    ]).astype(np.int64)
+    del corpus
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return truth
+
+
+def build_kmeans(packed, k, dev):
+    """build_centroids with bench.py's arguments."""
+    from vectorsearch_tpu_torch.build import build_centroids
+
+    n = packed.codes.shape[0]
+    return build_centroids(
+        packed,
+        k=k,
+        min_cluster_size=max(1, (n // k) // 10),
+        max_iters=10,
+        superset_iters=4,
+        chunk=65_536,
+        device=dev,
+    )
+
+
+def query_pool(packed, size, seed=7):
+    """`size` distinct queries: rows drawn with numpy `seed`, dequantized,
+    plus 0.1 gaussian noise, so their cluster density matches the queries'.
+    Distinct, because tiling a few queries would alias repeats into the
+    same clusters, shrink the buckets read and overstate QPS."""
+    rng = np.random.default_rng(seed)
+    pool_idx = rng.choice(packed.codes.shape[0], size=size, replace=False)
+    base = (
+        np.asarray(packed.offset)[pool_idx, None]
+        + np.asarray(packed.scale)[pool_idx, None]
+        * np.asarray(packed.codes)[pool_idx].astype(np.float32)
+    )
+    return (base + rng.normal(size=base.shape).astype(np.float32) * 0.1).astype(np.float32)
+
+
+def ivf_search(ivf, nprobe):
+    """fn(q) -> (scores, global slots) of the search IVFIndex.search(k=10,
+    refine=32) dispatches at `nprobe`, on queries already on the device."""
+    from vectorsearch_tpu_torch.index.ivf import _scan_refined
+
+    return lambda q: _scan_refined(
+        q, ivf.centroids_n, ivf.buckets, ivf.counts_dev, ivf.bucket_mask,
+        nprobe=nprobe, k_coarse=REFINE, k=TOPK, folded=ivf.folded,
+    )
+
+
+def slot_ids(ivf):
+    """Global bucket slots -> external ids (the host id map)."""
+    flat_ids = ivf.ids.reshape(-1)
+    return lambda idx: flat_ids[np.clip(idx, 0, flat_ids.size - 1)]
 
 
 # ---------------------------------------------------------------- phases
@@ -1223,8 +1272,7 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
     corpus, the queries and the truth go on to phase_flat, the build and
     the index before any write to phase_sharded; the scan kernel is timed
     on the built index's own store under "scan" (those launches are taken
-    out of the phase's count)."""
-    from vectorsearch_tpu_torch.bench import build_kmeans, exact_truth, make_corpus, make_queries
+    out of the phase's count), and bulk_check runs before the writes."""
     from vectorsearch_tpu_torch.host import layout
     from vectorsearch_tpu_torch.index import IVFIndex
     from vectorsearch_tpu_torch.kernels import cosine
@@ -1283,6 +1331,7 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
     log(f"index store: {ivf.k_clusters} x {ivf.cap} slots, {fill:.3f} of them below their "
         f"cluster's count; folded sidecar rows "
         f"{sum(t.numel() * 4 for t in ivf.folded) / 2**20:.1f} MiB on {smi}")
+    bulk = bulk_check(torch, dev, packed, queries, truth_ids, ivf)
 
     # the sharded phase's inputs: this build, and the index before any write
     sharded_inputs = (packed, ids, result.centroids, result.assignments, queries,
@@ -1318,6 +1367,7 @@ def phase_index(torch, dev, smi="", n=N, dim=DIM, k_gen=K_GEN, n_queries=N_QUERI
         "deleted_returned": returned, "n_live": ivf.n_live,
         "expected_live": n + m - gone.size, "flat_inputs": (packed, queries, truth),
         "sharded_inputs": sharded_inputs, "scan": scan, "search_profile": profile,
+        "bulk": bulk,
     }
 
 
@@ -1448,7 +1498,6 @@ import numpy as np
 import torch.distributed as dist
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
-from vectorsearch_tpu_torch.bench import make_corpus, make_queries
 from vectorsearch_tpu_torch.host import layout
 from vectorsearch_tpu_torch.index import IVFIndex, assign_clusters
 from vectorsearch_tpu_torch.parallel import ShardedIVF
@@ -1457,8 +1506,8 @@ from vectorsearch_tpu_torch.parallel.distributed import global_mesh, maybe_initi
 world, rank = int(sys.argv[3]), int(sys.argv[4])
 assert maybe_initialize(sys.argv[2], world, rank)
 mesh = global_mesh(1 if world > 1 else None)
-data = make_corpus(50_000, cs.DIM, 64, seed=3)
-packed, q = layout.pack_float(data), make_queries(data, 256)
+data = cs.make_corpus(50_000, cs.DIM, 64, seed=3)
+packed, q = layout.pack_float(data), cs.make_queries(data, 256)
 ids = np.arange(1, 50_001, dtype=np.int64)
 cents = data[np.random.default_rng(4).choice(50_000, 64, replace=False)]
 assign = assign_clusters(packed, cents, device=mesh.devices[0])
@@ -1820,133 +1869,49 @@ def phase_graft(torch, dev, smi, single, queries) -> dict:
     return out
 
 
-def phase_hostpath(torch, dev, smi, packed, centroids, assignments, queries,
-                   truth_ids) -> dict:
-    """The host-path tools (vectorsearch_tpu_torch/tools/host_profile.py and
-    bench_http_concurrent.py) on phase 4's rows, its build's centroids and
-    assignments and its queries (QueryAI: `q<i>` is query i), at the
-    engine's log level warn (the caller's level is restored after):
-    host_profile's split of one in-process search at nprobe 1 and 8 (with
-    the card's busy ms a search) and the HTTP layer on top, on an engine
-    whose index is packed straight in; then an engine booted from an
-    in-memory SQL store of the same rows (each row's centroid_id its
-    assignment, no rebuild), its recall@10 at nprobe 8 in-process against
-    the truth, and bench_http_concurrent's sweep over 1, 8 and 32 clients,
-    first with the clients in this process beside the server, then from a
-    client process of their own. Prints both tools' JSON lines and the
-    native codec's build: "numpy" where a C++ compiler is present fails
-    the phase."""
-    import shutil
-
-    from vectorsearch_tpu_torch import logger, native
-    from vectorsearch_tpu_torch.tools import bench_http_concurrent as bhc
-    from vectorsearch_tpu_torch.tools import engine_10m_check as ec
-    from vectorsearch_tpu_torch.tools import host_profile as hp
-    from vectorsearch_tpu_torch.tools import scale_corpus as sc
-    from vectorsearch_tpu_torch.tools.http_driver import serving_app
-
-    failures = []
-    n, dim = packed.codes.shape
-    codec = native.build_kind()
-    toolchain = shutil.which("make") and shutil.which(os.environ.get("CXX", "g++"))
-    log(f"hostpath: native codec {codec} (C++ compiler {'present' if toolchain else 'absent'})")
-    if codec == "numpy" and toolchain:
-        failures.append("the native codec fell back to numpy where a C++ compiler is present")
-    device = hp.device_name(dev)
-    engine_log = logging.getLogger("vectorsearch")
-    level = engine_log.level
-    logger.configure("warn")  # a line a search at info would be the phase's own cost
-    try:
-        t0 = time.perf_counter()
-        eng, store, _ = hp.build_engine(packed, centroids, assignments, ec.QueryAI(queries), dev)
-        try:
-            log(f"hostpath: host_profile's engine ({n} x {dim}) in "
-                f"{time.perf_counter() - t0:.1f} s")
-            prof = {"tool": "host_profile", "n": n, "dim": dim, "rounds": HOSTPATH_ROUNDS,
-                    "device": device, "native_codec": codec,
-                    **hp.profile(eng, store, HOSTPATH_ROUNDS)}
-        finally:
-            eng.close()
-            store.close()
-            del eng
-            ec.release(dev)
-        print(json.dumps(prof), flush=True)
-        for nprobe in hp.NPROBES:
-            split = prof[f"nprobe{nprobe}"]
-            if (split["engine_other_ms"] < 0 or not np.isfinite(split["total_ms"])
-                    or (dev.type == "cuda" and not split["device_ms"] > 0)):
-                failures.append(f"host_profile's split at nprobe {nprobe}: {split}")
-        if not np.isfinite(prof["http"]["overhead_ms"]):
-            failures.append(f"host_profile's HTTP overhead: {prof['http']}")
-
-        eng, store, secs = bhc.boot(packed, centroids, assignments, queries, dev)
-        try:
-            bench = {"tool": "bench_http_concurrent",
-                     "mode": "gpu" if dev.type == "cuda" else "cpu", "n": n,
-                     "k": len(centroids), "dim": dim, "nprobe": bhc.NPROBE,
-                     "host_cores": os.cpu_count(), "device": device, "native_codec": codec,
-                     **secs}
-            bench["recall_at_10"] = sc.recall(ec.top10(eng, queries.shape[0])[0], truth_ids)
-            if bench["recall_at_10"] < MIN_RECALL_WIDE:
-                failures.append(f"the SQL-booted engine's recall@10 {bench['recall_at_10']:.4f}"
-                                f" < {MIN_RECALL_WIDE} at nprobe {ec.NPROBE}")
-            with serving_app(eng) as port:
-                bench["sweep"] = bhc.sweep(port, eng=eng)
-                bench["sweep_client_process"] = bhc.client_process_sweep(port)
-        finally:
-            eng.close()
-            store.close()
-            del eng
-            ec.release(dev)
-    finally:
-        engine_log.setLevel(level)
-    print(json.dumps(bench), flush=True)
-    for key in ("sweep", "sweep_client_process"):
-        for r in bench[key]:
-            rows = round(r["rows_per_dispatch"] * r["dispatches"])
-            if r["errors"] or not 1 <= r["dispatches"] <= r["requests"] or rows != r["requests"]:
-                failures.append(f"bench_http_concurrent's {key} at C={r['clients']}: {r}")
-    log(f"hostpath: {n} rows, recall@10 {bench['recall_at_10']}, failures {failures} ({smi})")
-    return {"host_profile": prof, "bench_http_concurrent": bench, "native_codec": codec,
-            "failures": failures}
-
-
 def bulk_check(torch, dev, packed, queries, truth_ids, ivf) -> dict:
-    """The search at bench's widest bulk shape (nprobe 2, B = the largest
-    BULK_BATCH, at most n): the queries, then bench.query_pool rows up to
-    B, in one call. The scan kernel on that call's groups against its
-    plain version (check_scan; those launches are taken out of the
-    phase's count), the call's top-10 against the same rows searched
-    BULK_CHECK_SPLIT at a time (sets equal but at a tie within
-    TIE_SHARDED), and the queries' recall@10 at the nprobe-2 floor."""
-    from vectorsearch_tpu_torch import bench
+    """The search at bench.py's widest bulk shape (nprobe 2, B = BULK_BATCH,
+    at most n): the queries, then query_pool rows up to B. Searched in one
+    call of ivf_search (as bench.py timed it) and through IVFIndex.search
+    (whose transient-memory model splits a batch this wide into chunks),
+    each call's top-10 against the same rows searched BULK_CHECK_SPLIT at
+    a time (sets equal but at a tie within TIE_SHARDED); the queries'
+    recall@10 at the nprobe-2 floor; and the scan kernel on the one call's
+    groups against its plain version (check_scan; those launches are taken
+    out of the phase's count)."""
     from vectorsearch_tpu_torch.kernels import cosine
     from vectorsearch_tpu_torch.kernels import grouped_scan as gs
     from vectorsearch_tpu_torch.tools.scale_corpus import sets_differ
 
     nprobe, nq = 2, len(queries)
-    b = max(x for x in bench.BULK_BATCH if x <= packed.codes.shape[0])
-    q = torch.from_numpy(np.concatenate([queries, bench.query_pool(packed, b - nq)])).to(dev)
-    fn, id_map = bench.ivf_search(ivf, nprobe), bench.slot_ids(ivf)
+    b = min(BULK_BATCH, packed.codes.shape[0])
+    rows = np.concatenate([queries, query_pool(packed, b - nq)])
+    q = torch.from_numpy(rows).to(dev)
+    fn, id_map = ivf_search(ivf, nprobe), slot_ids(ivf)
     s, i = (x.cpu().numpy() for x in fn(q))
     parts = [fn(q[j : j + BULK_CHECK_SPLIT]) for j in range(0, b, BULK_CHECK_SPLIT)]
     ws, wi = (np.concatenate([p[f].cpu().numpy() for p in parts]) for f in (0, 1))
     got, want = id_map(i), id_map(wi)
+    del parts
+    ss, si = ivf.search(rows, k=TOPK, nprobe=nprobe, refine=REFINE)
+    floor = MIN_RECALL.get(nprobe, MIN_RECALL_WIDE)
     out = {
         "batch": b, "nprobe": nprobe,
         "recall": float(np.mean([len(set(got[r]) & set(truth_ids[r])) / TOPK
                                  for r in range(nq)])),
         "sets_differ": sets_differ(s, got, ws, want, TIE_SHARDED),
+        "search_sets_differ": sets_differ(ss, si, ws, want, TIE_SHARDED),
         "max_score_diff": float(np.abs(s - ws).max()),
     }
-    del parts
+    out["failures"] = [f"bulk check {out} (recall floor {floor})"] if (
+        out["sets_differ"] or out["search_sets_differ"] or out["recall"] < floor) else []
     launches_before = gs.LAUNCHES
     qn = cosine.l2_normalize(q)
     qt, gcl, qidx, _, gcount = gs.build_groups(gs.probe(qn, ivf.centroids_n, nprobe),
                                                ivf.k_clusters)
     args = (qn.bfloat16()[qidx], qn.sum(-1)[qidx], gcl, ivf.counts_dev, ivf.buckets.codes,
             *ivf.folded)
-    out["groups"] = int(gcount)
+    out["groups"], out["qt"] = int(gcount), qt
     out["scan_max_abs_err"], _, _ = check_scan(
         torch, gs, args, gcount, 128,
         f"bulk nprobe={nprobe} B={b} G={out['groups']} (grid {int(gcl.numel())})")
@@ -1954,154 +1919,66 @@ def bulk_check(torch, dev, packed, queries, truth_ids, ivf) -> dict:
     del args, qn, q
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    log(f"bulk nprobe={nprobe} B={b} ({out['groups']} groups of QT {qt}): scan max "
+        f"|kernel - plain| {out['scan_max_abs_err']:.2e}; rows whose top-10 differs from "
+        f"{BULK_CHECK_SPLIT} at a time: {out['sets_differ']} in one call (max score diff "
+        f"{out['max_score_diff']:.2e}), {out['search_sets_differ']} through IVFIndex.search; "
+        f"recall@10 {out['recall']:.4f}")
     return out
 
 
-def phase_batchsweep(torch, dev, smi, packed, queries, truth_ids, ivf) -> dict:
-    """vectorsearch_tpu_torch/tools/batch_sweep.py's sweep at its defaults
-    (B 512 to 4096 at nprobe 1 and 2, distinct queries) on phase 4's index
-    before any write: every point finite and positive, recall@10 at each
-    point's shape at the 1M cell's floors. Then bulk_check at bench's
-    widest bulk shape: the kernel, the call's sets and its recall."""
-    from vectorsearch_tpu_torch.tools import batch_sweep
+def sql_boot_check(dev, packed, centroids, assignments, queries, truth_ids) -> dict:
+    """An engine booted from an in-memory SQL store of phase 4's rows
+    (engine_10m_check.populate: each row's centroid_id its assignment, so
+    the boot packs them without a rebuild) with QueryAI(queries): its
+    recall@10 at nprobe 8, in-process, against the truth."""
+    from vectorsearch_tpu_torch.engine import Engine
+    from vectorsearch_tpu_torch.host import Store
+    from vectorsearch_tpu_torch.tools import engine_10m_check as ec
+    from vectorsearch_tpu_torch.tools import scale_corpus as sc
 
-    rows = batch_sweep.sweep(ivf, packed, queries, truth_ids, dev)
-    failures = []
-    want = [(p, b) for p in batch_sweep.NPROBES for b in batch_sweep.BATCHES]
-    if [(r["nprobe"], r["batch"]) for r in rows] != want:
-        failures.append(f"the sweep's points {[(r['nprobe'], r['batch']) for r in rows]} "
-                        f"are not {want}")
-    for r in rows:
-        floor = MIN_RECALL.get(r["nprobe"], MIN_RECALL_WIDE)
-        if not (np.isfinite([r["ms"], r["qps"]]).all() and r["ms"] > 0 and r["qps"] > 0
-                and r["recall"] >= floor):
-            failures.append(f"batch sweep point {r} (recall floor {floor})")
-        log(f"batchsweep: nprobe={r['nprobe']} B={r['batch']}: {r['ms']:.3f} ms a search, "
-            f"{r['qps']:.0f} QPS, recall@10 {r['recall']:.4f} ({smi})")
-    bulk = bulk_check(torch, dev, packed, queries, truth_ids, ivf)
-    floor = MIN_RECALL.get(bulk["nprobe"], MIN_RECALL_WIDE)
-    if bulk["sets_differ"] or bulk["recall"] < floor:
-        failures.append(f"bulk check {bulk} (recall floor {floor})")
-    log(f"batchsweep: bulk nprobe={bulk['nprobe']} B={bulk['batch']} ({bulk['groups']} "
-        f"groups): scan max |kernel - plain| {bulk['scan_max_abs_err']:.2e}, "
-        f"{bulk['sets_differ']} rows whose top-10 differs from {BULK_CHECK_SPLIT} at a time "
-        f"(max score diff {bulk['max_score_diff']:.2e}), recall@10 {bulk['recall']:.4f}")
-    return {"rows": rows, "bulk": bulk, "failures": failures}
-
-
-def harness_run(module, extra_env) -> dict:
-    """`python -m <module>` from the checkout's root, with VSTPU_BENCH_CACHE
-    a fresh temporary directory removed afterwards (no cache before the
-    run, so its setup runs on this device; none left after it). The
-    environment is otherwise this process's: on the card the harness takes
-    its default device. Returns its exit code, output, log, seconds and the
-    kernel launches its last launch line reports."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="vs_bench_") as cache:
-        env = dict(os.environ, PYTHONPATH=root, VSTPU_BENCH_CACHE=cache, **extra_env)
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", module], cwd=root, env=env,
-                           capture_output=True, text=True, timeout=HARNESS_TIMEOUT_S)
-        secs = time.perf_counter() - t0
-    counts = HARNESS_LAUNCHES.findall(p.stderr)
-    return {"rc": p.returncode, "stdout": p.stdout, "stderr": p.stderr, "secs": secs,
-            "subprocess_launches": json.loads(counts[-1]) if counts else {}}
-
-
-def last_json(stdout) -> dict:
-    """The last stdout line as JSON ({} when there is none or it is not JSON)."""
-    lines = stdout.strip().splitlines()
+    store = Store(":memory:")
     try:
-        return json.loads(lines[-1]) if lines else {}
-    except ValueError:
-        return {}
+        out = {"populate_s": ec.populate(store, packed, centroids, assignments)["populate_s"]}
+        t0 = time.perf_counter()
+        eng = Engine(store, ec.QueryAI(queries), device=dev)
+        try:
+            out["boot_s"] = time.perf_counter() - t0
+            out["recall"] = sc.recall(ec.top10(eng, queries.shape[0])[0], truth_ids)
+        finally:
+            eng.close()
+            del eng
+    finally:
+        store.close()
+    ec.release(dev)
+    log(f"engine booted from SQL: {packed.codes.shape[0]} rows populated in "
+        f"{out['populate_s']:.1f} s, booted in {out['boot_s']:.1f} s, recall@10 "
+        f"{out['recall']:.4f} at nprobe {ec.NPROBE}")
+    return out
 
 
-def phase_bench(smi) -> dict:
-    """`python -m vectorsearch_tpu_torch.bench` at its defaults (bench.py's
-    1M x 768, K=1024; nothing cut) in a subprocess: exit 0; a last line with
-    the contract's four keys, complete (no NO MEASUREMENT, no partial) and a
-    positive value; a recall/QPS line for every row the harness plans (the
-    nprobe sweep at B=512, bulk_plan's points, flat+refine) with the IVF
-    rows at the 1M cell's floors and flat+refine at MIN_RECALL_WIDE; the
-    harness's launch line (the scan and both k-means kernels)."""
-    from vectorsearch_tpu_torch import bench
+def phase_engine(torch, dev, sql_inputs, n_docs=2_000) -> dict:
+    """sql_boot_check on phase 4's (packed, centroids, assignments,
+    queries, truth_ids), with its recall at the floor of nprobe 8; the
+    native codec's build ("numpy" where a C++ compiler is present fails);
+    then an Engine over a temporary SQLite store and snapshot dir."""
+    import shutil
 
-    out = harness_run("vectorsearch_tpu_torch.bench", {})
-    err, failures = out["stderr"], []
-    if out["rc"] != 0:
-        failures.append(f"exit {out['rc']}; its log ends:\n{err[-3000:]}")
-    head = last_json(out["stdout"])
-    metric = str(head.get("metric", ""))
-    if (set(head) != {"metric", "value", "unit", "vs_baseline"} or "NO MEASUREMENT" in metric
-            or "partial" in metric or not head.get("value", 0) > 0):
-        failures.append(f"the headline line: {head or out['stdout'][-500:]!r}")
-    rows = {m[1]: {"recall": float(m[2]), "qps": float(m[3]), "batch": int(m[4])}
-            for m in BENCH_ROW.finditer(err)}
-    for m in BENCH_BULK.finditer(err):
-        rows[f"{m[1]} B={m[2]} (bulk)"] = {"recall": float(m[4]), "qps": float(m[3]),
-                                            "batch": int(m[2])}
-    nprobes = list(dict.fromkeys((1, 2, bench.NPROBE, 64)))
-    expected = [f"ivf+refine nprobe={p}" for p in nprobes]
-    expected += [f"ivf+refine nprobe={p} B={b} (bulk)"
-                 for p, batches in bench.bulk_plan(nprobes, bench.N).items() for b in batches]
-    expected.append(f"flat+refine B={bench.FLAT_BATCH}")
-    missing = [label for label in expected if label not in rows]
-    if missing:
-        failures.append(f"no measurement of {missing}")
-    for label, r in rows.items():
-        nprobe = re.match(r"ivf\+refine nprobe=(\d+)", label)
-        floor = MIN_RECALL.get(int(nprobe[1]), MIN_RECALL_WIDE) if nprobe else MIN_RECALL_WIDE
-        if r["recall"] < floor or not r["qps"] > 0:
-            failures.append(f"{label}: recall@10 {r['recall']:.4f} (floor {floor}), "
-                            f"{r['qps']:.0f} QPS")
-    for line in err.splitlines():
-        if "bench: " in line and "bench: phase=" not in line:
-            log(f"  {line.strip()}")
-    log(f"bench: {len(rows)} rows of {len(expected)} planned, headline {metric!r} "
-        f"value {head.get('value')}, launches {out['subprocess_launches']}, "
-        f"{out['secs']:.1f} s in all ({smi})")
-    return {"rows": rows, "headline": head, "secs": out["secs"], "failures": failures,
-            "subprocess_launches": out["subprocess_launches"]}
-
-
-def phase_benchbuild(smi, n=BENCHBUILD_N) -> dict:
-    """`python -m vectorsearch_tpu_torch.bench_build` in a subprocess with
-    VSTPU_BUILD_N=n (BENCHBUILD_N: cut from 10M, see there) and its other
-    defaults (D=768, K=4096): exit 0, its JSON line (seconds), its
-    max/mean cluster line over n rows with 1 < K <= 2 x 4096, and its
-    launch line (both k-means kernels)."""
-    from vectorsearch_tpu_torch import bench_build
-
-    out = harness_run("vectorsearch_tpu_torch.bench_build", {"VSTPU_BUILD_N": str(n)})
-    err, failures = out["stderr"], []
-    if out["rc"] != 0:
-        failures.append(f"exit {out['rc']}; its log ends:\n{err[-3000:]}")
-    line = last_json(out["stdout"])
-    if set(line) != {"metric", "value", "unit"} or line["unit"] != "s" or not line["value"] > 0:
-        failures.append(f"the JSON line: {line or out['stdout'][-500:]!r}")
-    m = BUILD_LINE.search(err)
-    built = {} if m is None else {
-        "k": int(m[1]), "n": int(m[2]), "build_s": float(m[3]), "max_cluster": int(m[4]),
-        "mean_cluster": int(m[5])}
-    if not (built and built["n"] == n and 1 < built["k"] <= 2 * bench_build.K
-            and built["max_cluster"] >= built["mean_cluster"] > 0):
-        failures.append(f"the build's line: {built or err[-2000:]}")
-    for ln in err.splitlines():
-        if "build-bench: " in ln:
-            log(f"  {ln.strip()}")
-    log(f"benchbuild: {line.get('metric')}: {line.get('value')} s, launches "
-        f"{out['subprocess_launches']}, {out['secs']:.1f} s in all ({smi})")
-    return {"line": line, "build": built, "secs": out["secs"], "failures": failures,
-            "subprocess_launches": out["subprocess_launches"]}
-
-
-def phase_engine(torch, dev, n_docs=2_000) -> dict:
-    """Engine over a temporary SQLite store and snapshot dir."""
+    from vectorsearch_tpu_torch import native
     from vectorsearch_tpu_torch.engine import Engine
     from vectorsearch_tpu_torch.host import NoopAI, Store, layout
 
-    out = {}
+    out = {"sql_boot": sql_boot_check(dev, *sql_inputs), "failures": []}
+    if out["sql_boot"]["recall"] < MIN_RECALL_WIDE:
+        out["failures"].append(f"the SQL-booted engine's recall@10 "
+                               f"{out['sql_boot']['recall']:.4f} < {MIN_RECALL_WIDE}")
+    out["native_codec"] = native.build_kind()
+    toolchain = shutil.which("make") and shutil.which(os.environ.get("CXX", "g++"))
+    log(f"engine: native codec {out['native_codec']} (C++ compiler "
+        f"{'present' if toolchain else 'absent'})")
+    if out["native_codec"] == "numpy" and toolchain:
+        out["failures"].append("the native codec fell back to numpy where a C++ compiler "
+                               "is present")
     with tempfile.TemporaryDirectory(prefix="vs_smoke_") as tmp:
         store = Store(os.path.join(tmp, "store.db"))
         eng = Engine(store, NoopAI(seed=0), snapshot_dir=os.path.join(tmp, "snaps"),
@@ -2515,11 +2392,10 @@ def entry_check(tmp, failures) -> dict:
 def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     """bench_build.py's build: clustered packed rows from k generating
     centers, made on the card, moved to host numpy once, then
-    build_centroids with bench_build.py's arguments. The rows are returned
-    under "rows", the build under "result", for profile_build and the 10M
-    serving and engine phases."""
-    from vectorsearch_tpu_torch import bench_build
-    from vectorsearch_tpu_torch.tools.scale_corpus import packed_host
+    build_centroids with bench_build.py's arguments (scale_corpus.build).
+    The rows are returned under "rows", the build under "result", for
+    profile_build and the 10M serving and engine phases."""
+    from vectorsearch_tpu_torch.tools.scale_corpus import build, packed_host
 
     t0 = time.perf_counter()
     host = packed_host(dev, n, DIM, k, seed=0)
@@ -2527,7 +2403,7 @@ def phase_build10m(torch, dev, n=BUILD_N, k=BUILD_K) -> dict:
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    result = bench_build.build(host, dev, k=k)
+    result = build(host, dev, k=k)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -2556,12 +2432,12 @@ def profile_build(torch, host, dev, k=BUILD_K, top=10) -> dict:
     build)."""
     from torch.autograd import DeviceType
 
-    from vectorsearch_tpu_torch import bench_build
+    from vectorsearch_tpu_torch.tools.scale_corpus import build
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        bench_build.build(host, dev, k=k)
+        build(host, dev, k=k)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     sums = {}
@@ -2742,8 +2618,6 @@ def main() -> int:
                            "kmeans_accumulate": km.ACCUMULATE_LAUNCHES,
                            "flat_bands_s8": tf.S8_LAUNCHES,
                            "flat_bands_bf16": tf.BF16_LAUNCHES}
-        # a phase that runs the path in a subprocess: that process's counts
-        launches[phase].update(out.pop("subprocess_launches", {}))
         log(f"launches in the {phase} phase: {launches[phase]}")
         return out
 
@@ -2762,9 +2636,6 @@ def main() -> int:
     flat = run("flat", lambda: phase_flat(torch, dev, *idx.pop("flat_inputs")))
     sharded_inputs = idx.pop("sharded_inputs")
     shd = run("sharded", lambda: phase_sharded(torch, dev, smi, *sharded_inputs))
-    # tools/batch_sweep.py on phase 4's rows, queries, truth and index
-    bsw = run("batchsweep", lambda: phase_batchsweep(
-        torch, dev, smi, *[sharded_inputs[i] for i in (0, 4, 5, 6)]))
     # the scan held against plain on one shard's store of the sharded path
     entries[0]["sharded_shard_checks"] = shd["scan_checks"]
     entries[0]["max_abs_err"] = max([entries[0]["max_abs_err"],
@@ -2773,15 +2644,11 @@ def main() -> int:
     grf = run("graft", lambda: phase_graft(torch, dev, smi, sharded_inputs[-1],
                                            sharded_inputs[4]))
     # phase 4's host rows, build, queries and truth; its device index goes
-    hostpath_inputs = [sharded_inputs[i] for i in (0, 2, 3, 4, 5)]
+    engine_inputs = [sharded_inputs[i] for i in (0, 2, 3, 4, 5)]
     del sharded_inputs
     torch.cuda.empty_cache()
-    hst = run("hostpath", lambda: phase_hostpath(torch, dev, smi, *hostpath_inputs))
-    del hostpath_inputs
-    torch.cuda.empty_cache()
-    bch = run("bench", lambda: phase_bench(smi))
-    bbd = run("benchbuild", lambda: phase_benchbuild(smi))
-    eng = run("engine", lambda: phase_engine(torch, dev))
+    eng = run("engine", lambda: phase_engine(torch, dev, engine_inputs))
+    del engine_inputs
     srv = run("server", lambda: phase_server(torch, dev, smi))
     torch.cuda.empty_cache()
     b10 = run("build10m", lambda: phase_build10m(torch, dev))
@@ -2807,16 +2674,13 @@ def main() -> int:
         floor = MIN_RECALL.get(nprobe, MIN_RECALL_WIDE)
         if r < floor:
             failures.append(f"recall@10 {r:.4f} < {floor} at nprobe={nprobe}")
+    failures += [f"index phase: {f}" for f in idx["bulk"]["failures"]]
     for phase, names in PHASE_KERNELS.items():
         idle = [k for k in names if not launches[phase][k]]
         if idle:
             failures.append(f"not launched in the {phase} phase: {idle}")
     failures += [f"sharded phase: {f}" for f in shd["failures"]]
     failures += [f"graft phase: {f}" for f in grf["failures"]]
-    failures += [f"hostpath phase: {f}" for f in hst["failures"]]
-    failures += [f"batchsweep phase: {f}" for f in bsw["failures"]]
-    failures += [f"bench phase: {f}" for f in bch["failures"]]
-    failures += [f"benchbuild phase: {f}" for f in bbd["failures"]]
     # the scan once a shard of every search on the card's shards
     if launches["sharded"]["grouped_scores"] < SHARDED_SHARDS * shd["virtual_searches"]:
         failures.append(f"sharded phase: {launches['sharded']['grouped_scores']} scan "
@@ -2836,6 +2700,7 @@ def main() -> int:
             and min(eng["hits"]) > 0 and eng["reboot_hits"] > 0
             and eng["reboot_live"] == eng["live"] - eng["deleted_vectors"]):
         failures.append(f"engine phase: {eng}")
+    failures += [f"engine phase: {f}" for f in eng["failures"]]
     failures += [f"server phase: {f}" for f in srv["failures"]]
     if not (b10["finite"] and b10["assigned"] == b10["n"] and b10["iterations"] >= 1
             and 1 < b10["k"] <= 2 * b10["k_asked"]):

@@ -45,14 +45,12 @@ print(" ".join(names))
     # parallel/ (4), the port's own copies of the host modules (config,
     # constants, logger, utils.errors, quant/ (3), native, store/ (6),
     # embed/ (7)), the graft entry points (graft_entry), the client SDK
-    # (client), the scale checks, the host-path tools, their HTTP driver and
-    # the batch sweep (tools/, 8), the quickstart (examples/, 2) and the
-    # bench harness (bench, bench_build)
-    assert int(count) >= 67
+    # (client), the scale checks and their HTTP driver (tools/, 5) and the
+    # quickstart (examples/, 2)
+    assert int(count) >= 62
     for name in ("tools", "tools.scale_corpus", "tools.bench_10m_serving",
-                 "tools.engine_10m_check", "tools.http_driver", "tools.host_profile",
-                 "tools.bench_http_concurrent", "tools.batch_sweep", "examples",
-                 "examples.quickstart", "bench", "bench_build"):
+                 "tools.engine_10m_check", "tools.http_driver", "examples",
+                 "examples.quickstart"):
         assert f"vectorsearch_tpu_torch.{name}" in names.split()
 
 

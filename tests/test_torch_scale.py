@@ -5,8 +5,11 @@ recall against the floors; one SQLite store populated by the tool and
 booted by the JAX package's Engine and by the port's, whose top-10 sets
 agree but at ties (torch_parity's tolerance); the port's cold and warm
 boots alike; the engine check end to end (uploads find themselves, deletes
-never return); and both tools' main() printing their JSON line."""
+never return); both tools' main() printing their JSON line; and
+chip_smoke.py's 1M corpus against bench.py's."""
+import importlib.util
 import json
+import os
 
 import numpy as np
 import pytest
@@ -14,7 +17,6 @@ import torch
 
 from vectorsearch_tpu.engine import Engine as JaxEngine
 from vectorsearch_tpu.store import Store as JaxStore
-from vectorsearch_tpu_torch.bench_build import build
 from vectorsearch_tpu_torch.device import upload_packed
 from vectorsearch_tpu_torch.engine import Engine
 from vectorsearch_tpu_torch.quant import layout
@@ -24,6 +26,7 @@ from vectorsearch_tpu_torch.tools import engine_10m_check as ec
 from vectorsearch_tpu_torch.tools import scale_corpus as sc
 from torch_parity import ATOL
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, K = 20_000, 16
 CPU = torch.device("cpu")
 # recall@10 floors of the 1M and 10M cells (chip_smoke.py)
@@ -36,7 +39,7 @@ def corpus():
     packed = sc.packed_host(CPU, N, sc.DIM, K, seed=0)
     queries = sc.make_queries(packed)
     truth = sc.exact_truth(queries, CPU, N, sc.DIM, K, seed=0)
-    return packed, queries, truth, build(packed, CPU, k=K)
+    return packed, queries, truth, sc.build(packed, CPU, k=K)
 
 
 @pytest.fixture
@@ -175,3 +178,46 @@ def test_engine_main_prints_its_json_line(small_runs, monkeypatch, capsys, tmp_p
     out = last_json(capsys)
     assert out["n"] == 8000 and out["failures"] == [] and out["device"] == "cpu"
     assert out["entry"]["upload"]["not_first"] == 0
+
+
+def load(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def smoke_and_bench():
+    """chip_smoke.py and the JAX package's bench.py, as fresh modules."""
+    return (load(os.path.join(ROOT, "chip_smoke.py"), "chip_smoke_script"),
+            load(os.path.join(ROOT, "bench.py"), "jax_bench_script"))
+
+
+def test_make_corpus_bit_equal_to_bench_py(smoke_and_bench):
+    """chip_smoke.py's recall floors were measured on bench.py's corpus."""
+    smoke, jax_bench = smoke_and_bench
+    for shape in ((4_000, 64, 16), (150_001, 8, 5)):  # one 100,000-row noise chunk and more
+        np.testing.assert_array_equal(smoke.make_corpus(*shape), jax_bench.make_corpus(*shape))
+
+
+def test_queries_and_truth_match_bench_py(smoke_and_bench, monkeypatch, tmp_path):
+    """bench.py's setup() at 4,000 x 64, K=16, 64 queries (its cache in
+    tmp_path) beside chip_smoke.py's make_queries and exact_truth: the
+    queries bit-equal, the truth the same id sets but at a tie within 1e-6
+    of the tenth f64 cosine."""
+    smoke, jax_bench = smoke_and_bench
+    n, dim, k, nq = 4_000, 64, 16, 64
+    for name, v in (("N", n), ("DIM", dim), ("K_CLUSTERS", k), ("N_QUERIES", nq),
+                    ("CACHE", str(tmp_path / "jax-setup.npz"))):
+        monkeypatch.setattr(jax_bench, name, v)
+    _, want_q, want_t = jax_bench.setup()
+    data = smoke.make_corpus(n, dim, k)
+    queries = smoke.make_queries(data, nq)
+    np.testing.assert_array_equal(queries, want_q)
+    truth = smoke.exact_truth(data, queries, CPU)
+    sims = (queries / np.linalg.norm(queries, axis=1, keepdims=True)).astype(np.float64) @ (
+        data / np.linalg.norm(data, axis=1, keepdims=True)).T.astype(np.float64)
+    assert truth.shape == (nq, smoke.TOPK) and truth.dtype == np.int64
+    assert sc.sets_differ(np.take_along_axis(sims, truth, 1), truth,
+                          np.take_along_axis(sims, want_t, 1), want_t, 1e-6) == 0

@@ -8,7 +8,7 @@ Counterpart of tools/bench_10m_serving.py.
     VSTPU_DEVICE=cpu python -m vectorsearch_tpu_torch.tools.bench_10m_serving --n 20000 --k 16
 
 Rows: scale_corpus's recipe from k generating centers, seed 0, made on the
-device and moved to host numpy. Centroids: bench_build.build, build_centroids
+device and moved to host numpy. Centroids: scale_corpus.build, build_centroids
 with bench_build.py's arguments (k clusters). The index takes the engine's
 device budget (device.hbm_budget), as a served category does, where the
 TPU tool took headroom 1.0 to fit in 16 GB. Prints one JSON line.
@@ -23,7 +23,6 @@ import time
 import numpy as np
 import torch
 
-from ..bench_build import build
 from ..device import hbm_budget, resolve, to_device, upload_packed
 from ..index import FlatIndex, IVFIndex
 from ..kernels import flat as tf
@@ -150,7 +149,7 @@ def main(argv=None) -> int:
     truth = sc.exact_truth(queries, dev, args.n, sc.DIM, args.k, seed=0)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    result = build(packed, dev, k=args.k)
+    result = sc.build(packed, dev, k=args.k)
     sync(dev)
     build_s = time.perf_counter() - t0
     log(f"serve10m: {args.n}x{sc.DIM} rows, queries and truth {gen_s:.1f} s; build "

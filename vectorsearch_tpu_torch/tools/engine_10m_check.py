@@ -51,7 +51,6 @@ import torch
 
 from .. import config as config_mod
 from .. import constants
-from ..bench_build import build
 from ..device import resolve
 from ..embed.base import AIProvider
 from ..quant import codec, layout
@@ -414,7 +413,7 @@ def main(argv=None) -> int:
     packed = sc.packed_host(dev, args.n, sc.DIM, args.k, seed=0)
     queries = sc.make_queries(packed)
     truth = sc.exact_truth(queries, dev, args.n, sc.DIM, args.k, seed=0)
-    result = build(packed, dev, k=args.k)
+    result = sc.build(packed, dev, k=args.k)
     log(f"engine10m: rows, queries, truth and build in {time.perf_counter() - t0:.1f} s")
     with contextlib.ExitStack() as stack:
         workdir = args.dir or stack.enter_context(

@@ -1,4 +1,4 @@
-"""The scale checks' corpus, queries and exact truth.
+"""The scale checks' corpus, queries, exact truth and k-means build.
 
 Rows follow bench_build.py's recipe (2 * center + unit noise around k
 generating centers) but are made on a device from a torch seed, slab by
@@ -7,12 +7,15 @@ ever holding all of them (10M x 768 f32 is 31 GB). Queries and truth
 follow tools/bench_10m_serving.py: 512 rows drawn with numpy seed 123,
 dequantized, plus 0.1 gaussian noise; the truth is exact-f32 cosine top-10
 over the ORIGINAL rows, so recall is charged for the corpus quantization.
+The build is build_centroids with bench_build.py's arguments (BASELINE
+config 4: 10M x 768 -> 4096 centroids).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..build import build_centroids
 from ..device import check_exact_f32, pin_exact_f32
 from ..kernels import cosine
 from ..quant.layout import PackedVectors
@@ -65,6 +68,21 @@ def packed_host(dev, n: int, dim: int, k: int, seed: int) -> PackedVectors:
         for dst, src in zip(host, part):
             dst[start : start + src.shape[0]] = src.cpu().numpy()
     return host
+
+
+def build(packed, device, k: int):
+    """bench_build.py's build_centroids of `packed` into about k clusters."""
+    n = packed.codes.shape[0]
+    return build_centroids(
+        packed,
+        k=k,
+        min_cluster_size=max(1, (n // k) // 10),
+        max_iters=8,
+        superset_iters=3,
+        chunk=65_536,
+        balance_rounds=1,
+        device=device,
+    )
 
 
 def make_queries(packed: PackedVectors, n_queries: int = N_QUERIES, seed: int = 123,
