@@ -12,7 +12,9 @@ Query path: upload -> centroid top-nprobe probe -> grouped bucket scan
 (the CUDA kernel, kernels/grouped_scan.py) -> exact top-k epilogue ->
 exact-f32 re-rank -> id map on the device -> one read back -> merge with
 spill hits. nprobe = K takes the exhaustive streamed scan instead. Between
-the upload and the read the host does not wait on the card.
+the upload and the read the host does not wait on the card, and from a
+shape's second call on, the card replays that stretch as one CUDA graph
+(index/graphs.py).
 
 Mutations copy on write: `insert` and `remove_ids` write into clones, so
 an index object a reader holds never changes (the JAX package's arrays
@@ -39,6 +41,7 @@ from ..device import (
 from ..kernels import cosine, grouped_scan
 from ..quant.layout import PackedVectors
 from ..utils.profiling import count, span, traced
+from . import graphs
 from .flat import FlatIndex
 
 
@@ -183,6 +186,11 @@ class IVFIndex:
     # instead of paying the failed dispatch again. Writes return new
     # instances, which start afresh.
     _oom_memo: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    # the CUDA graphs of this instance's search shapes (index/graphs.py);
+    # new instances start with none, unless only the spill tail changed
+    _graphs: graphs.GraphCache = field(
+        default_factory=graphs.GraphCache, init=False, repr=False, compare=False
+    )
 
     @property
     def k_clusters(self) -> int:
@@ -209,7 +217,8 @@ class IVFIndex:
         """The scan kernel's per-slot rows (a, bv, bias) of this store
         (grouped_scan.fold_sidecars), 12 bytes a slot on the device, folded
         at the first grouped search and kept. The instance is frozen and
-        every write returns a new one (`replace`), which folds anew."""
+        every write returns a new one (`replace`), which folds anew unless
+        only the spill tail changed (`_with_spill`)."""
         return grouped_scan.fold_sidecars(
             self.buckets, self.counts_dev, self.bucket_mask
         )
@@ -346,19 +355,24 @@ class IVFIndex:
         and the scores and ids (with the spill tail's answers, where it
         holds rows) come back in one read.
 
+        On the card, the chain between the upload and the read (`_chain`)
+        is a CUDA graph from the second call of a shape on: one launch in
+        place of ~130 (index/graphs.py says when). Its answers are the eager
+        chain's, bit for bit.
+
         Spans (utils/profiling.py): `ivf.search` around the call, with the
         children `ivf.upload`, `ivf.dispatch` (the scan's stages `scan.*`
         inside), `ivf.id_map`, `ivf.spill` and `ivf.sync` around each wait
-        on the card; the counters `ivf.calls` and `ivf.syncs`."""
+        on the card; a replayed call has `ivf.graph` in place of
+        `ivf.dispatch` and `ivf.id_map`. Counters `ivf.calls`, `ivf.syncs`,
+        `ivf.graph_captures` and `ivf.graph_replays`."""
         count("ivf.calls")
         with span("ivf.upload"), grouped_scan.host_waits():
             queries = torch.atleast_2d(to_device(queries, self.device, torch.float32))
         if nprobe < 0:
             nprobe = self.k_clusters
         nprobe = max(1, min(nprobe, self.k_clusters))
-        k_coarse = max(k, refine) if refine else k
         exhaustive = nprobe == self.k_clusters
-        epilogue = grouped_scan._default_epilogue()
 
         budget = 2 << 30  # transient scratch bound per dispatch
         b_max = max(1, int(queries.shape[0]))
@@ -375,56 +389,35 @@ class IVFIndex:
             while b_max > 1 and _transient(b_max) > budget:
                 b_max = (b_max + 1) // 2
 
-        def one(qs, epi):
-            if exhaustive:
-                return _exhaustive_refined(
-                    qs, self.buckets, self.bucket_mask,
-                    k_coarse=k_coarse, k=k if refine else k_coarse,
-                    refine=bool(refine),
-                )
-            if refine:
-                return _scan_refined(
-                    qs, self.centroids_n, self.buckets, self.counts_dev,
-                    self.bucket_mask, nprobe=nprobe, k_coarse=k_coarse, k=k,
-                    epilogue=epi, folded=self.folded,
-                )
-            # always the grouped scan: no switch routes a CUDA tensor
-            # around the kernel (CPU tensors take its plain version)
-            return grouped_scan.ivf_scan_grouped(
-                qs, self.centroids_n, self.buckets, self.counts_dev,
-                self.bucket_mask, nprobe=nprobe, k=k_coarse, epilogue=epi,
-                folded=self.folded,
-            )
-
-        def dispatch(bm, epi):
-            with span("ivf.dispatch"):
-                parts = [
-                    one(queries[i : i + bm], epi)
-                    for i in range(0, queries.shape[0], bm)
-                ]
-                if len(parts) == 1:  # a cat of one part would copy it
-                    return parts[0]
-                return tuple(torch.cat(t, dim=0) for t in zip(*parts))
+        epilogue = grouped_scan._default_epilogue()
+        memo = self._oom_memo.get(nprobe)
+        if memo is not None:
+            epilogue, b_max = memo[0], min(b_max, memo[1])
+        key = graphs.Key(int(queries.shape[0]), nprobe, k, refine, epilogue, b_max)
+        cache = self._graphs
+        if graphs.plan(key, cuda=queries.is_cuda, exhaustive=exhaustive,
+                       memoized=memo is not None, seen=cache.seen, held=cache.held,
+                       refused=cache.refused) != graphs.EAGER:
+            with cache.lock:  # until the graph's outputs are read
+                out = self._graphed(key, queries)
+                if out is not None:
+                    return self._answers(queries, k, refine, *out)
 
         # On an out-of-memory dispatch: if the auto policy resolved to
         # blockexact, first downgrade to flat at the SAME batch (its extra
         # buffers are exactly the marginal allocation); then halve the
         # batch, at most 3 times, so a real fault still surfaces.
-        cur_epi = epilogue
-        memo = self._oom_memo.get(nprobe)
-        if memo is not None:
-            cur_epi, b_max = memo[0], min(b_max, memo[1])
         retried = False
         for attempt in range(4):
             try:
-                scores, gslot = dispatch(b_max, cur_epi)
+                scores, gslot = self._dispatch(queries, key)
                 break
             except torch.cuda.OutOfMemoryError as e:
                 if attempt == 3:
                     raise
                 action, cur_epi, _, b_max = _oom_fallback(
                     not exhaustive and bool(refine),
-                    nprobe, self.cap, cur_epi, False, b_max,
+                    nprobe, self.cap, key.epilogue, False, key.b_max,
                 )
                 if action == "raise":
                     raise
@@ -438,15 +431,135 @@ class IVFIndex:
                     else f"halved chunk b_max={b_max}",
                 )
                 torch.cuda.empty_cache()
+                key = key._replace(epilogue=cur_epi, b_max=b_max)
                 retried = True
         if retried:
-            self._oom_memo[nprobe] = (cur_epi, b_max)
+            self._oom_memo[nprobe] = (key.epilogue, key.b_max)
+        else:
+            cache.saw(key)
+        return self._answers(queries, k, refine, *self._id_map(scores, gslot))
+
+    def _scan(self, qs, key: graphs.Key):
+        """One dispatch's (scores, global slots) for the query rows qs."""
+        k, nprobe, refine = key.k, key.nprobe, key.refine
+        k_coarse = max(k, refine) if refine else k
+        if nprobe == self.k_clusters:
+            return _exhaustive_refined(
+                qs, self.buckets, self.bucket_mask,
+                k_coarse=k_coarse, k=k if refine else k_coarse,
+                refine=bool(refine),
+            )
+        if refine:
+            return _scan_refined(
+                qs, self.centroids_n, self.buckets, self.counts_dev,
+                self.bucket_mask, nprobe=nprobe, k_coarse=k_coarse, k=k,
+                epilogue=key.epilogue, folded=self.folded,
+            )
+        # always the grouped scan: no switch routes a CUDA tensor around
+        # the kernel (CPU tensors take its plain version)
+        return grouped_scan.ivf_scan_grouped(
+            qs, self.centroids_n, self.buckets, self.counts_dev,
+            self.bucket_mask, nprobe=nprobe, k=k_coarse, epilogue=key.epilogue,
+            folded=self.folded,
+        )
+
+    def _dispatch(self, queries, key: graphs.Key):
+        """The scan of every query row, key.b_max rows a dispatch."""
+        with span("ivf.dispatch"):
+            bm = key.b_max
+            parts = [
+                self._scan(queries[i : i + bm], key)
+                for i in range(0, queries.shape[0], bm)
+            ]
+            if len(parts) == 1:  # a cat of one part would copy it
+                return parts[0]
+            return tuple(torch.cat(t, dim=0) for t in zip(*parts))
+
+    def _id_map(self, scores, gslot):
+        """(scores, external ids) on the device."""
         with span("ivf.id_map"):
             # -inf entries may carry the slot of a masked candidate: clamp
             # before the gather, then null them
             flat_ids = self.ids_dev.view(-1)
             safe = torch.clamp(gslot, 0, flat_ids.numel() - 1)
-            ids = torch.where(torch.isneginf(scores), -1, flat_ids[safe])
+            return scores, torch.where(torch.isneginf(scores), -1, flat_ids[safe])
+
+    def _chain(self, queries, key: graphs.Key):
+        """The device chain of a search of shape `key` on uploaded queries:
+        (scores, external ids) on the device, nothing waited for. Both the
+        eager path and the graph run it."""
+        return self._id_map(*self._dispatch(queries, key))
+
+    def _graphed(self, key: graphs.Key, queries):
+        """(scores, ids) of `key`'s graph on `queries`: a replay, or on the
+        shape's first graphed call the warm-up's answers while its graph is
+        captured. None where the capture runs out of memory (the shape then
+        stays eager on this instance). The caller holds the cache's lock."""
+        cache = self._graphs
+        if key in cache.refused:  # evicted since the call planned
+            return None
+        entry = cache.get(key)
+        if entry is not None:
+            entry.static_q.copy_(queries)
+            with span("ivf.graph"):
+                entry.graph.replay()
+            count("ivf.graph_replays")
+            grouped_scan.LAUNCHES += entry.scans
+            return entry.outputs
+        try:
+            answers, entry = self._capture(key, queries)
+        except torch.cuda.OutOfMemoryError:
+            cache.refuse(key)
+            torch.cuda.empty_cache()
+            return None
+        count("ivf.graph_captures")
+        cache.put(key, entry)
+        return answers
+
+    def _capture(self, key: graphs.Key, queries):
+        """Warm the chain up on the capture stream (the warm-up's answers
+        are the call's), then record it into a graph: side-stream work that
+        runs lazily once (cuBLAS's workspace) is then done before the
+        capture. Both draw on the index's graph pool, so the capture finds
+        the warm-up's scratch free there. Other threads' work on the card
+        cannot break a thread-local capture. `torch.cuda.graph` is not
+        used: it also collects garbage, empties the allocator's cache and
+        waits on the whole card, costs to every thread of a serving
+        process."""
+        shared = self._graphs.shared
+        if shared.stream is None:
+            shared.stream = torch.cuda.Stream(self.device)
+        if shared.pool is None:
+            shared.pool = torch.cuda.MemPool()
+        side, cur = shared.stream, torch.cuda.current_stream(self.device)
+        static_q = torch.empty_like(queries)
+        static_q.copy_(queries)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), torch.cuda.use_mem_pool(shared.pool, self.device):
+            answers = self._chain(static_q, key)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # the scan's wrapper counts the launches it records, which run only
+        # at a replay: keep their number for the replays, and take them
+        # back out of the total, whether or not the capture succeeds
+        before = grouped_scan.LAUNCHES
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=shared.pool.id, capture_error_mode="thread_local")
+                try:
+                    outputs = self._chain(static_q, key)
+                finally:
+                    graph.capture_end()
+            shared.anchor = graph
+        finally:
+            scans = grouped_scan.LAUNCHES - before
+            grouped_scan.LAUNCHES = before
+            if shared.anchor is None:  # the pool's first capture failed: no
+                shared.pool = None  # graph holds the pool open for the next
+        return answers, graphs.Entry(graph, static_q, outputs, scans)
+
+    def _answers(self, queries, k: int, refine: int, scores, ids):
+        """The one read of the answers, merged with the spill tail's."""
         spill = ()
         if self.spill.live > 0:
             with span("ivf.spill"):
@@ -492,7 +605,7 @@ class IVFIndex:
         ids = np.asarray(ids, np.int64)
         new_host = PackedVectors(*[to_host(a) for a in new])
         if self.frozen:
-            return replace(self, spill=self.spill.append(new_host, ids))
+            return self._with_spill(self.spill.append(new_host, ids))
         cid = self.assign(new_host) if cids is None else np.asarray(cids, np.int64)
 
         # host slot allocation: sequential slots per cluster (grouped
@@ -529,8 +642,7 @@ class IVFIndex:
             ids_dev[c_t, s_t] = torch.from_numpy(ids[sel]).to(dev)
             mask_host = self.mask_host.copy()
             mask_host[cid[sel], slot[sel]] = True
-            idx = replace(
-                self,
+            idx = self._rewritten(
                 buckets=buckets,
                 bucket_mask=bucket_mask,
                 mask_host=mask_host,
@@ -546,7 +658,7 @@ class IVFIndex:
             spill = idx.spill.append(
                 PackedVectors(*[a[sel] for a in new_host]), ids[sel]
             )
-            idx = replace(idx, spill=spill)
+            idx = idx._with_spill(spill)
         return idx
 
     def remove_ids(self, remove: np.ndarray) -> "IVFIndex":
@@ -567,15 +679,33 @@ class IVFIndex:
                 torch.from_numpy(cid).to(self.device),
                 torch.from_numpy(slot).to(self.device),
             ] = False
-            idx = replace(
-                idx,
+            idx = self._rewritten(
                 bucket_mask=bucket_mask,
                 mask_host=mask_host,
                 live_count=self.live_count - int(hit.sum()),
             )
         spill = idx.spill.remove_ids(remove)
         if spill is not idx.spill:
-            idx = replace(idx, spill=spill)
+            idx = idx._with_spill(spill)
+        return idx
+
+    def _rewritten(self, **changes) -> "IVFIndex":
+        """This index with new bucket arrays (`changes`). Its graphs read
+        the old ones and stay behind; the new instance's graphs share their
+        lock, stream and memory pool (index/graphs.py)."""
+        idx = replace(self, **changes)
+        object.__setattr__(idx, "_graphs", self._graphs.successor())
+        return idx
+
+    def _with_spill(self, spill: FlatIndex) -> "IVFIndex":
+        """This index with another spill tail. The buckets are the same
+        tensors, so the folded sidecar rows and the search graphs, which
+        read the buckets and never the tail, carry over: the two instances
+        share one graph cache and its lock."""
+        idx = replace(self, spill=spill)
+        if "folded" in self.__dict__:  # a graph reads this very tensor
+            idx.__dict__["folded"] = self.folded
+            object.__setattr__(idx, "_graphs", self._graphs)
         return idx
 
     # ---- maintenance ----
@@ -693,10 +823,11 @@ class IVFIndex:
 
     def release_device(self) -> None:
         """Free this index's device buffers (bucket store, mask, counts,
-        ids, the folded sidecar rows if a search made them, spill tail) now,
-        without waiting for the last reference to go: the frozen-store
-        re-pack must free the old store before the new layout uploads.
-        The index is unusable afterwards."""
+        ids, the folded sidecar rows if a search made them, spill tail, and
+        its search graphs) now, without waiting for the last reference to
+        go: the frozen-store re-pack must free the old store before the new
+        layout uploads. The index is unusable afterwards."""
+        self._graphs.clear()
         for t in (
             *self.buckets, self.bucket_mask, self.counts_dev, self.ids_dev,
             *self.__dict__.pop("folded", ()),
