@@ -22,6 +22,15 @@ from .. import constants
 from ..device import PACKED_DTYPES, resolve, to_device, to_host
 from ..kernels import cosine
 from ..quant.layout import PackedVectors
+from ..utils.profiling import count, span, traced
+
+
+def _host_waits():
+    """The span `flat.sync` around a point of `FlatIndex.search` where the
+    host waits on the card (the pageable upload of the queries, a read),
+    and one more on the counter `flat.syncs`."""
+    count("flat.syncs")
+    return span("flat.sync")
 
 
 def round_capacity(n: int) -> int:
@@ -170,6 +179,7 @@ class FlatIndex:
 
     # ---- queries ----
 
+    @traced("flat.search")
     def search(
         self,
         queries,
@@ -179,22 +189,37 @@ class FlatIndex:
     ):
         """Top-k cosine search. Returns (scores f32[B,k], ids int64[B,k])
         as numpy; empty slots carry score -inf and id -1. refine=m>0
-        re-ranks the coarse top-m with the exact f32 query."""
-        scores, slots = self.topk(queries, k, chunk=chunk, refine=refine)
-        scores = to_host(scores)
-        return scores, self.map_ids(scores, to_host(slots))
+        re-ranks the coarse top-m with the exact f32 query.
+
+        Spans (utils/profiling.py): `flat.search` around the call, with
+        `flat.scan` and `flat.refine` (in `topk`) and `flat.sync` around
+        each of its three waits on the card: the queries' upload and the
+        reads of the scores and of the slots. Counters `flat.calls` and
+        `flat.syncs` (`topk` alone, as the IVF spill tail calls it, counts
+        no call)."""
+        count("flat.calls")
+        with _host_waits():
+            q = torch.atleast_2d(to_device(queries, self.device, torch.float32))
+        scores, slots = self.topk(q, k, chunk=chunk, refine=refine)
+        with _host_waits():
+            scores = to_host(scores)
+        with _host_waits():
+            slots = to_host(slots)
+        return scores, self.map_ids(scores, slots)
 
     def topk(self, queries, k: int, chunk: int = 65_536, refine: int = 0):
         """search's device part: (scores f32 [B, k], slots i64 [B, k]) as
         device tensors, nothing read back."""
         q = torch.atleast_2d(to_device(queries, self.device, torch.float32))
         coarse_k = max(k, refine) if refine else k
-        scores, slots = cosine.scan_topk_streamed(
-            q, self.packed, self.n, k=coarse_k, chunk=chunk,
-            valid_mask=self.mask,
-        )
+        with span("flat.scan"):
+            scores, slots = cosine.scan_topk_streamed(
+                q, self.packed, self.n, k=coarse_k, chunk=chunk,
+                valid_mask=self.mask,
+            )
         if refine:
-            scores, slots = cosine.rescore_topk(q, self.packed, scores, slots, k)
+            with span("flat.refine"):
+                scores, slots = cosine.rescore_topk(q, self.packed, scores, slots, k)
         return scores, slots
 
     def map_ids(self, scores: np.ndarray, slots: np.ndarray) -> np.ndarray:
