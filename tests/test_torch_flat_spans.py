@@ -1,8 +1,9 @@
 """The flat index's spans and counters (index/flat.py) at their sites, on
 the CPU under torch.profiler's CPU activity: `FlatIndex.search` records
-its call, its scan, its refine and each wait on the card; the IVF spill
-tail, which calls `FlatIndex.topk`, counts no flat call; the answers do
-not depend on whether a profiler records."""
+its call, its scan, its refine and each wait on the card; a refined call
+takes the band route and counts one `flat.band_scans`, an unrefined one
+none; the IVF spill tail, which calls `FlatIndex.topk`, counts no flat
+call; the answers do not depend on whether a profiler records."""
 import dataclasses
 
 import numpy as np
@@ -63,9 +64,42 @@ def test_flat_search_spans_and_counters(refine):
         assert len(inside(call, events, "flat.refine")) == (1 if refine else 0)
         assert len(inside(call, events, "flat.sync")) == WAITS
     snap = profiling.snapshot()
-    assert snap["counters"] == {"flat.calls": CALLS, "flat.syncs": CALLS * WAITS}
+    band = {"flat.band_scans": CALLS} if refine else {}
+    assert snap["counters"] == {"flat.calls": CALLS, "flat.syncs": CALLS * WAITS, **band}
     assert snap["spans"]["flat.sync"]["count"] == CALLS * WAITS
     assert snap["spans"]["flat.search"]["seconds"] >= snap["spans"]["flat.scan"]["seconds"] > 0
+
+
+@pytest.mark.parametrize("refine", [0, 1, 5, 24])
+def test_band_scans_count_refined_calls(refine):
+    """One `flat.band_scans` a call that refines (refine below, at and above
+    k), none at refine 0; `topk` alone counts it too."""
+    flat, q = tiny_flat()
+    with recorder():
+        for _ in range(CALLS):
+            flat.search(q, k=5, chunk=1024, refine=refine)
+        flat.topk(q, k=5, refine=refine)
+    counters = profiling.snapshot()["counters"]
+    assert counters.get("flat.band_scans", 0) == (CALLS + 1 if refine else 0)
+    assert counters["flat.calls"] == CALLS
+
+
+@pytest.mark.parametrize("refine", [0, 24])
+def test_spans_nest_in_order(refine):
+    """Within each `flat.search`: the upload's wait, then `flat.scan`, then
+    `flat.refine` (refined calls only), then the two reads; none overlaps
+    another."""
+    flat, q = tiny_flat()
+    with recorder() as prof:
+        for _ in range(CALLS):
+            flat.search(q, k=5, chunk=1024, refine=refine)
+    events = program_spans(prof)
+    names = ["flat.sync", "flat.scan"] + (["flat.refine"] if refine else []) + ["flat.sync"] * 2
+    for call in [e for e in events if e.name == "vs::flat.search"]:
+        inner = sorted((e for e in events if e is not call and call.start <= e.start
+                        and e.end <= call.end), key=lambda e: e.start)
+        assert [e.name for e in inner] == [spans.PREFIX + n for n in names]
+        assert all(a.end <= b.start for a, b in zip(inner, inner[1:]))
 
 
 def test_spill_tail_counts_no_flat_call():
@@ -84,6 +118,7 @@ def test_spill_tail_counts_no_flat_call():
         ivf.search(q, k=5, nprobe=3, refine=10)
     counters = profiling.snapshot()["counters"]
     assert "flat.calls" not in counters and "flat.syncs" not in counters
+    assert counters["flat.band_scans"] == 1  # the tail's refined topk takes the band route
     assert counters["ivf.calls"] == 1
     events = program_spans(prof)
     (spill,) = [e for e in events if e.name == "vs::ivf.spill"]

@@ -19,7 +19,13 @@ Tolerances, kernel vs plain:
 - flat bands: s8 bit-equal (exact integer dots, the plain version's
   roundings), also where |dot| passes 2^24; bf16 within atol 1e-4 (f32
   sums in another order) with the same -inf pattern; the same under every
-  block and ring shape.
+  block and ring shape;
+- the flat index's band route (FlatIndex.search at refine > 0) against the
+  streamed route on the card (tests/flat_route_cases.py): never worse at
+  any rank by f64 cosine, equal under assert_hits_match (scores atol 1e-5)
+  wherever the streamed route returns the exact top k, which at refine 32
+  is every query; a scan cut into many launches gives the one launch's
+  scores bit for bit.
 """
 import functools
 import importlib
@@ -28,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import flat_route_cases as routes
 from vectorsearch_tpu_torch.index import IVFIndex
 from vectorsearch_tpu_torch.kernels import _build, cosine, grouped_scan
 from vectorsearch_tpu_torch.kernels import flat as tf
@@ -769,3 +776,48 @@ def test_flat_kernels_refuse_a_bad_schedule(cuda, monkeypatch, schedule):
     with pytest.raises(RuntimeError, match="cudaError 1"):
         tf.flat_bands_bf16(*bf16)
     assert (tf.S8_LAUNCHES, tf.BF16_LAUNCHES) == before
+
+
+@functools.lru_cache(maxsize=None)
+def _route_case(n, b):
+    """Rows and queries of the flat configuration's law at D=768; the ids
+    to tombstone: every 13th row from the sixth, and the first query's best
+    row where a row would be left."""
+    v, q = routes.law(n, b, seed=n * 1000 + b)
+    dead = np.arange(n, dtype=np.int64)[5::13] + 100
+    if n > 1:
+        best = routes.index(v, [], "cpu").search(q[:1], k=1)[1][0, 0]
+        dead = np.union1d(dead, [best])
+    return v, q, dead
+
+
+@pytest.mark.parametrize("refine", [10, 32])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 65537])
+@pytest.mark.parametrize("b", [1, 7, 512])
+def test_flat_index_band_route_matches_streamed(cuda, b, n, refine):
+    """FlatIndex.search(k=10, refine) on the card, capacity past n, with
+    tombstones: one s8 band launch, and the streamed route's answers, or
+    better ones where the streamed route's coarse top m missed a row."""
+    v, q, dead = _route_case(n, b)
+    f = routes.index(v, dead, cuda)
+    assert f.capacity > f.n == n
+    before = tf.S8_LAUNCHES
+    band = f.search(q, k=10, refine=refine)
+    assert tf.S8_LAUNCHES - before == 1
+    assert not np.isin(band[1], dead).any()
+    routes.compare_routes(f, q, band, routes.streamed(f, q, 10, refine), 10, refine)
+
+
+@pytest.mark.parametrize("refine", [10, 32])
+def test_flat_index_band_route_in_chunks(cuda, monkeypatch, refine):
+    """The launch budget cut to 8 tiles at B=512: 9 launches over 65,537
+    rows, each chunk's top bands merged, against the one launch."""
+    v, q, dead = _route_case(65537, 512)
+    f = routes.index(v, dead, cuda)
+    one = f.search(q, k=10, refine=refine)
+    monkeypatch.setattr(tf, "BAND_BYTES", 8 * tf.BAND_LANES * 4 * 512)
+    before = tf.S8_LAUNCHES
+    many = f.search(q, k=10, refine=refine)
+    assert tf.S8_LAUNCHES - before == 9
+    routes.assert_hits_match(many, one)
+    np.testing.assert_array_equal(many[0], one[0])

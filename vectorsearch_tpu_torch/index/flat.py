@@ -1,8 +1,17 @@
 """Device-resident flat (exhaustive) index with append and tombstones.
 
 Counterpart of vectorsearch_tpu/index/flat.py. The corpus lives on the
-device as a capacity-padded PackedVectors of tensors; searches are one
-chunked scan plus an optional exact-f32 re-rank.
+device as a capacity-padded PackedVectors of tensors. A search takes one
+of two routes, chosen by its `refine`:
+
+  * refine = 0: the chunked streamed scan (cosine.scan_topk_streamed),
+    whose coarse int8 scores are the answer, as the JAX package's are;
+  * refine = m > 0: the band route (kernels/flat.py band_candidates): the
+    s8 band kernel over the first n rows, the top max(k, m) bands, their
+    rows, and the exact-f32 re-rank (cosine.rescore_topk). A row of the
+    coarse top m lies in a band whose maximum is at least its score, so
+    the rescored rows hold the streamed scan's coarse top m, and the
+    answer at each rank is the JAX package's or a better one.
 
 Copy on write: mutating operations return a new FlatIndex and never write
 into a tensor an older index still holds, so lock-free readers keep their
@@ -20,7 +29,7 @@ import torch
 
 from .. import constants
 from ..device import PACKED_DTYPES, resolve, to_device, to_host
-from ..kernels import cosine
+from ..kernels import cosine, flat
 from ..quant.layout import PackedVectors
 from ..utils.profiling import count, span, traced
 
@@ -196,7 +205,8 @@ class FlatIndex:
         each of its three waits on the card: the queries' upload and the
         reads of the scores and of the slots. Counters `flat.calls` and
         `flat.syncs` (`topk` alone, as the IVF spill tail calls it, counts
-        no call)."""
+        no call), and `flat.band_scans` in `topk` for each call that takes
+        the band route."""
         count("flat.calls")
         with _host_waits():
             q = torch.atleast_2d(to_device(queries, self.device, torch.float32))
@@ -208,19 +218,22 @@ class FlatIndex:
         return scores, self.map_ids(scores, slots)
 
     def topk(self, queries, k: int, chunk: int = 65_536, refine: int = 0):
-        """search's device part: (scores f32 [B, k], slots i64 [B, k]) as
-        device tensors, nothing read back."""
+        """search's device part: (scores f32 [B, k], slots i32 [B, k]) as
+        device tensors, nothing read back. refine=0 takes the streamed scan
+        (its coarse scores are the answer); refine=m>0 takes the band route
+        (kernels/flat.py), whose candidates hold the streamed scan's coarse
+        top m, and counts one `flat.band_scans`."""
         q = torch.atleast_2d(to_device(queries, self.device, torch.float32))
-        coarse_k = max(k, refine) if refine else k
+        if not refine:
+            with span("flat.scan"):
+                return cosine.scan_topk_streamed(q, self.packed, self.n, k=k, chunk=chunk,
+                                                 valid_mask=self.mask)
+        count("flat.band_scans")
         with span("flat.scan"):
-            scores, slots = cosine.scan_topk_streamed(
-                q, self.packed, self.n, k=coarse_k, chunk=chunk,
-                valid_mask=self.mask,
-            )
-        if refine:
-            with span("flat.refine"):
-                scores, slots = cosine.rescore_topk(q, self.packed, scores, slots, k)
-        return scores, slots
+            cand, rows = flat.band_candidates(q, self.packed, self.n, max(k, refine), k,
+                                              self.mask)
+        with span("flat.refine"):
+            return cosine.rescore_topk(q, self.packed, cand, rows, k, valid=self.mask)
 
     def map_ids(self, scores: np.ndarray, slots: np.ndarray) -> np.ndarray:
         """External ids of topk's slots, read back: -1 where the score is

@@ -1,5 +1,5 @@
 """Band-max flat search: the s8 and bf16 band kernels, their plain
-PyTorch versions, and flat_search around them.
+PyTorch versions, and the band route around them.
 
 Counterpart of vectorsearch_tpu/kernels/pallas_flat.py. The corpus is cut
 into tiles of TILE_N = 1024 rows; band `lane` of a tile is its 8 rows
@@ -10,16 +10,26 @@ scores
     bf16:  a[r] * <q[b], codes[r]> + qsum[b] * bv[r] + bias[r]
 
 with a = scale * inv_norm, bv = offset * inv_norm and bias 0 for a live
-row or -inf for a dead one. flat_search then takes the top bands, expands
-each to its 8 rows and rescores those exactly (cosine.rescore_topk). A
-true top-k row lies in a band whose maximum is at least its coarse score,
-so the only loss is other bands crowding its band out of the top k_bands.
+row or -inf for a dead one. The band route (band_candidates) takes the top
+bands, in chunks of whole tiles whose band maxima fit BAND_BYTES, expands
+each to its 8 rows, and leaves them to the exact rescore
+(cosine.rescore_topk). Its callers:
+
+  * FlatIndex.topk at refine = m > 0 (index/flat.py), on the s8 kernel,
+    with m bands. A row of the coarse top m lies in a band whose maximum
+    is at least its score, and if that band were not among the top m, m
+    other bands, so m other rows, would score at least as high. So the
+    rescored rows hold the coarse top m of the streamed scan (the same
+    int8 scores, up to the rounding of the affine terms), and the exact
+    answer at each rank is the streamed route's or a better one.
+  * flat_search (the JAX package's flat_search_pallas), with k_bands
+    bands and either kernel.
 
 The kernels live in csrc/flat.cu. On CPU tensors each wrapper runs its
 plain version; on CUDA tensors it launches its kernel or raises. The
 kernels load through TMA, which needs 16-byte row strides: for a D that is
 no multiple of 16 the wrappers pad the codes and the query rows with zero
-columns (a copy of the corpus a call), which add exactly 0 to every dot.
+columns (a copy of the rows scanned, a call), which add exactly 0 to every dot.
 
 Not carried over from the TPU module: the padding of the corpus to whole
 tiles (the kernels score rows past N as -inf without reading them), the
@@ -201,6 +211,65 @@ def flat_bands_bf16(q, qsum, codes, a, bv, bias):
 
 # ------------------------------------------------------------ flat search
 
+# The most bytes of f32 band maxima one launch writes: the band route walks
+# the rows in whole-tile chunks of at most BAND_BYTES / (4 * B) bands, so its
+# memory stays bounded at any N, as the streamed scan's does. At B=512 one
+# launch covers 2**21 rows.
+BAND_BYTES = 1 << 29
+
+
+def band_candidates(queries, corpus: PackedVectors, n_valid: int, k_bands: int, k: int,
+                    live, use_s8: bool = True):
+    """The rows of the top k_bands bands over rows [0, n_valid), as
+    rescore_topk's candidates: (cand f32 [B, w], rows i32 [B, w]) with cand
+    0 for a row to rescore and -inf for a row past n_valid, and w at least k
+    (dead entries fill a corpus too small for k).
+
+    `live` is bool [N], False for a dead row (rows at and past n_valid are
+    never scanned, whatever it holds there). The bands come from one launch
+    a chunk of whole tiles (BAND_BYTES), each chunk's top bands merged into
+    the carried set: a band of the global top k_bands is also in its own
+    chunk's top k_bands."""
+    dev = corpus.codes.device
+    qn = cosine.l2_normalize(queries.float())
+    b = qn.shape[0]
+    qsum = qn.sum(dim=-1)
+    if use_s8:
+        qc, sq, _ = cosine.quantize_queries(qn)
+    else:
+        qb = qn.bfloat16()
+    step = max(1, BAND_BYTES // (4 * BAND_LANES * b)) * TILE_N
+    best_s = band = None
+    for lo in range(0, n_valid, step):
+        hi = min(lo + step, n_valid)
+        codes = corpus.codes[lo:hi]
+        a = corpus.scale[lo:hi] * corpus.inv_norm[lo:hi]
+        bv = corpus.offset[lo:hi] * corpus.inv_norm[lo:hi]
+        bias = torch.where(live[lo:hi], 0.0, cosine.NEG_INF)
+        if use_s8:
+            bands = flat_bands_s8(qc, sq, qsum, codes, a, bv, bias)
+        else:
+            bands = flat_bands_bf16(qb, qsum, codes, a, bv, bias)
+        # exact: approx_max_k is not carried
+        s, top = torch.topk(bands, min(k_bands, bands.shape[1]), dim=-1)
+        if lo == 0:
+            best_s, band = s, top
+        else:
+            best_s, band = cosine.merge_topk(best_s, band, s, top + lo // GROUPS,
+                                             min(k_bands, band.shape[1] + top.shape[1]))
+    if band is None:  # no rows
+        band = torch.zeros((b, 0), dtype=torch.int64, device=dev)
+    j = torch.arange(GROUPS, device=dev) * BAND_LANES
+    rows = ((band // BAND_LANES) * TILE_N + band % BAND_LANES)[:, :, None] + j
+    rows = rows.reshape(b, -1).to(torch.int32)
+    if rows.shape[1] < k:
+        rows = torch.nn.functional.pad(rows, (0, k - rows.shape[1]), value=n_valid)
+    # the corpus is not padded: a band of the last tile expands to rows
+    # past n_valid, which rescore_topk would clamp to the last row and
+    # score as a copy of it; they enter dead
+    cand = torch.where(rows < n_valid, 0.0, cosine.NEG_INF)
+    return cand, rows
+
 
 def flat_search(queries, corpus: PackedVectors, n_valid, k: int, k_bands: int = 64,
                 valid_mask=None, use_s8: bool = True):
@@ -212,28 +281,9 @@ def flat_search(queries, corpus: PackedVectors, n_valid, k: int, k_bands: int = 
     (bool [N]) is False, are dead. Returns (scores f32 [B, k], idx i32
     [B, k]): exact f32 cosines of the returned rows, best first, -inf
     where fewer than k live rows were found."""
-    n = corpus.codes.shape[0]
-    dev = corpus.codes.device
-    qn = cosine.l2_normalize(queries.float())
-    qsum = qn.sum(dim=-1)
-    live = torch.arange(n, device=dev) < n_valid
+    n_valid = min(int(n_valid), corpus.codes.shape[0])
+    live = torch.arange(corpus.codes.shape[0], device=corpus.codes.device) < n_valid
     if valid_mask is not None:
         live = live & valid_mask
-    a = corpus.scale * corpus.inv_norm
-    bv = corpus.offset * corpus.inv_norm
-    bias = torch.where(live, 0.0, cosine.NEG_INF)
-    if use_s8:
-        qc, sq, _ = cosine.quantize_queries(qn)
-        bands = flat_bands_s8(qc, sq, qsum, corpus.codes, a, bv, bias)
-    else:
-        bands = flat_bands_bf16(qn.bfloat16(), qsum, corpus.codes, a, bv, bias)
-    kb = min(k_bands, bands.shape[1])
-    _, band = torch.topk(bands, kb, dim=-1)  # exact: approx_max_k is not carried
-    j = torch.arange(GROUPS, device=dev) * BAND_LANES
-    rows = ((band // BAND_LANES) * TILE_N + band % BAND_LANES)[:, :, None] + j
-    rows = rows.reshape(band.shape[0], kb * GROUPS).to(torch.int32)
-    # the corpus is not padded: a band of the last tile expands to rows
-    # past N, which rescore_topk would clamp to row N - 1 and score as a
-    # copy of it; they enter dead
-    cand = torch.where(rows < n, 0.0, cosine.NEG_INF)
+    cand, rows = band_candidates(queries, corpus, n_valid, k_bands, k, live, use_s8)
     return cosine.rescore_topk(queries, corpus, cand, rows, k, valid=live)
