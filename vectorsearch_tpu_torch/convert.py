@@ -21,7 +21,7 @@ import torch
 
 from .device import resolve, to_device, to_host, upload_packed
 from .index.flat import FlatIndex
-from .index.ivf import IVFIndex
+from .index.ivf import HostMirror, IVFIndex
 from .kernels import cosine
 from .quant.layout import PackedVectors
 
@@ -80,10 +80,10 @@ def ivf_from_arrays(arrays: dict, device=None) -> IVFIndex:
             PackedVectors(*[np.asarray(arrays[f]) for f in _FIELDS]), device
         ),
         bucket_mask=to_device(mask, device),
-        mask_host=mask.copy(),
+        mask_mirror=HostMirror(mask.copy()),
         counts=counts.copy(),
         counts_dev=to_device(counts, device),
-        ids=np.asarray(arrays["ids"], np.int64).copy(),
+        id_mirror=HostMirror(np.asarray(arrays["ids"], np.int64).copy()),
         ids_dev=to_device(np.asarray(arrays["ids"], np.int64), device),
         spill=flat_from_arrays(arrays, device),
         live_count=int(mask.sum()),
